@@ -7,26 +7,41 @@ Phases, each printing its own lines; any failure raises and exits nonzero
 (nothing is caught, nothing falls back):
 
 1. the card: ``nvidia-smi`` name and power limit, device count, and the
-   build of every hand-written kernel from the sources in this checkout;
+   build of every hand-written kernel from the sources in this checkout
+   (one ``nvcc`` per source, all started together);
 2. the ``chunk_digest`` CUDA kernel against its plain PyTorch version on the
    card over a sweep of dtypes, sizes (empty, 0-d, ``nbytes % 4 != 0``,
    partial last chunks, one leaf over 2**31 bytes) and chunk sizes, and
    against the host oracle ``chunk_digest_np`` on a subset;
-3. the main path through ``repro_torch.launch.train``: qwen2-0.5b at full
+   the ``flash_attention`` CUDA kernel against ``flash_attention_plain``
+   over the reference test's shapes (causal and not), f32/bf16/f16, head
+   dims 32/64/128, a ``scale`` override, rows with no key (Sq > Sk), a
+   group of 7 with ragged tiles and the serve path's own shapes, with a
+   stated tolerance per dtype that must catch a dropped key tile;
+3. the training path through ``repro_torch.launch.train``: qwen2-0.5b at full
    width and depth, batch 4, seq 512, 6 steps, a checkpoint every 2 steps
    with the fork persist backend. The codec is ``none`` by default, not the
    CLI's ``pgzip``, on purpose: it measures the card's path and leaves out
    host compression, which at ``pgzip`` compresses 4.94 GB per checkpoint
    on the host and takes most of the time limit (``--codec pgzip`` runs the
-   CLI default). The kernel's launch count is zeroed just before and read
-   just after, and must be > 0;
+   CLI default). Every kernel's launch count is zeroed just before and
+   read just after; ``chunk_digest``'s must be > 0;
 4. restart: restore step 4 onto the card, run steps 5 and 6, and require
    the state to equal the stored step-6 image bit for bit (that image is
    restored with ``verify``, which re-digests every chunk on the host);
-5. the kernel's time on the card at the main path's shapes (the 43 leaves
-   of the train state, 1 MiB chunks), its bound, and the plain version's
-   time, printed as one ``{"kernels": [...]}`` JSON line;
-6. the last line: ``{"ok": true, "device": {...}}``.
+5. the serving path through ``repro_torch.launch.serve``: lazy restore of
+   the step-6 params onto the card, prefill of 2 x 8192 tokens (every
+   layer's attention is one flash launch: 24 per prefill, zeroed just
+   before and read just after), 32 greedy tokens; an eager serve must give
+   the same bits, and the 32 served logits must lie no further from the
+   f32 model's than one bf16 forward over prompt + 31 served tokens (the
+   dense lowering) does (teacher forcing);
+6. each kernel's time on the card at its path's shapes (``chunk_digest``:
+   the 43 leaves of the train state, 1 MiB chunks; ``flash_attention``:
+   one layer of the prefill), its bound, the plain version's time and,
+   for attention, ``scaled_dot_product_attention``'s, printed as one
+   ``{"kernels": [...]}`` JSON line;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is available.
 """
@@ -49,12 +64,26 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, and 32-bit operations
-# outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, 32-bit operations outside
+# the tensor cores, and dense BF16 tensor-core operations (f32 accumulate)
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 ARCH = "qwen2-0.5b"
 STEPS, BATCH, SEQ, LR = 6, 4, 512, 3e-4
+SERVE_BATCH, PROMPT, GEN = 2, 8192, 32
+# flash kernel vs plain version, (atol, rtol) in |got - want| <= atol +
+# rtol |want|: f32 within two sum orders (the reference test's 2e-5); bf16
+# and f16 round two f32 values that differ by a sum order to the output's
+# type, so one ulp of the output (rtol 2**-7, 2**-10) plus 1e-4 for the sum
+# order over up to 8192 keys where the output is near 0
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7),
+             torch.float16: (1e-4, 2.0 ** -10)}
+# teacher forcing: the served logits (prefill through the kernel, then
+# decode) may lie no further from the f32 model's logits than one bf16
+# forward (dense lowering) of the same tokens does (PERF.md says why), and
+# every position whose top two forward logits lie more than twice the
+# served-vs-forward difference apart must pick the same token
 
 
 def phase_card() -> None:
@@ -66,11 +95,15 @@ def phase_card() -> None:
     print(f"[card] torch={torch.__version__} cuda={torch.version.cuda} "
           f"name={torch.cuda.get_device_name(0)} "
           f"count={torch.cuda.device_count()}", flush=True)
-    from repro_torch.kernels import chunk_digest
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import chunk_digest, flash_attention
 
     t0 = time.perf_counter()
-    lib = chunk_digest.build()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s", flush=True)
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
+        libs = list(pool.map(lambda k: k.build(), (chunk_digest, flash_attention)))
+    print(f"[build] {' '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def _random_tensor(numel_shape, dtype, gen) -> torch.Tensor:
@@ -134,18 +167,122 @@ def phase_sweep() -> None:
         raise SystemExit(f"chunk_digest: {mismatches} mismatches")
 
 
+def _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen):
+    """q, k contiguous; v the model's view: (B, Sk, Hkv, D) transposed."""
+    q = torch.randn((B, Hq, Sq, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, Sk, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dtype)
+    return q, k, v.transpose(1, 2)
+
+
+def _plain_block(n: int) -> int:
+    """The plain version's block: the largest divisor of n up to 128."""
+    return max(b for b in range(1, min(n, 128) + 1) if n % b == 0)
+
+
+def _plain(q, k, v, *, causal=True, scale=None) -> torch.Tensor:
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     block_q=_plain_block(q.shape[2]),
+                                     block_k=_plain_block(k.shape[2]))
+
+
+def _tol_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (atol + rtol |want|): above 1 is a breach."""
+    atol, rtol = FLASH_TOL[want.dtype]
+    want = want.float()
+    return float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _flash_vs_plain(q, k, v, *, causal=True, scale=None) -> float:
+    from repro_torch.kernels import flash_attention
+
+    got = flash_attention.flash_attention(q, k, v, causal=causal, scale=scale)
+    want = _plain(q, k, v, causal=causal, scale=scale)
+    if got.dtype != q.dtype or got.shape != q.shape:
+        raise SystemExit(f"flash_attention: got {got.dtype} {tuple(got.shape)}")
+    atol, rtol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    Sq, Sk = q.shape[2], k.shape[2]
+    if causal and Sq > Sk:  # rows with no key: the mean of v over all Sk
+        mean = v.float().mean(dim=2).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+        torch.testing.assert_close(
+            got[:, :, : Sq - Sk].float(),
+            mean[:, :, None].expand(-1, -1, Sq - Sk, -1), atol=atol, rtol=rtol)
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_flash_sweep() -> None:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [  # (B, Hq, Hkv, Sq, Sk, D)
+        (1, 1, 1, 128, 128, 64), (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 128, 128),
+        (1, 4, 4, 128, 512, 64), (2, 2, 2, 384, 384, 32),   # the reference test's
+        (1, 2, 1, 256, 128, 64),                            # Sq > Sk: rows with no key
+        (1, 14, 2, 200, 200, 64), (1, 14, 2, 120, 200, 64),  # group of 7, ragged tiles
+    ]
+    worst = {}
+    cases = 0
+    for dtype in FLASH_TOL:
+        for shape in shapes:
+            for causal in (True, False):
+                err = _flash_vs_plain(*_flash_inputs(*shape, dtype, gen), causal=causal)
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                cases += 1
+        err = _flash_vs_plain(*_flash_inputs(1, 1, 1, 128, 128, 64, dtype, gen), scale=0.5)
+        worst[dtype] = max(worst[dtype], err)
+        cases += 1
+    # the serve path's prefill, one layer: qwen2-0.5b heads at 8192 tokens
+    q, k, v = _flash_inputs(SERVE_BATCH, 14, 2, PROMPT, PROMPT, 64, torch.bfloat16, gen)
+    serve = _flash_vs_plain(q, k, v)
+    cases += 1
+    # what the tolerance reads for a wrong kernel: the last 128 rows (the
+    # longest, where one key tile weighs least) with their first key tile
+    # dropped; the right-aligned mask keeps every other key of those rows
+    T = 128
+    want = _plain(q[:, :, -T:], k, v)
+    dropped = _plain(q[:, :, -T:], k[:, :, T:], v[:, :, T:])
+    drop_err = float((dropped.float() - want.float()).abs().max())
+    drop_ratio = _tol_ratio(dropped, want)
+    del q, k, v, want, dropped
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[flash-sweep] cases={cases} " + " ".join(
+        f"{str(d).replace('torch.', '')}_max_abs_err={e:.3g} (atol {FLASH_TOL[d][0]:g} "
+        f"rtol {FLASH_TOL[d][1]:g})" for d, e in worst.items())
+        + f" serve_shape_max_abs_err={serve:.3g}: within tolerance; one key tile "
+        f"dropped reads max_abs_err={drop_err:.3g}, {drop_ratio:.3g}x the limit",
+        flush=True)
+    if drop_ratio <= 1:
+        raise SystemExit("the bf16 tolerance does not see a dropped key tile")
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import chunk_digest, flash_attention
+
+    chunk_digest.chunk_digests.launches = 0
+    flash_attention.flash_attention.launches = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import chunk_digest, flash_attention
+
+    return {"chunk_digest": chunk_digest.chunk_digests.launches,
+            "flash_attention": flash_attention.flash_attention.launches}
+
+
 def phase_main_path(store: str, codec: str):
-    from repro_torch.kernels import chunk_digest
     from repro_torch.launch import train
 
     argv = ["--arch", ARCH, "--steps", str(STEPS), "--batch", str(BATCH),
             "--seq", str(SEQ), "--lr", str(LR), "--ckpt-every", "2", "--backend", "fork",
             "--codec", codec, "--log-every", "1", "--ckpt-dir", store]
-    chunk_digest.chunk_digests.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     out = train.train(argv)
     wall = time.perf_counter() - t0
-    launches = chunk_digest.chunk_digests.launches
+    counts = _counts()
+    launches = counts["chunk_digest"]
     for r in out["results"]:
         print(f"[ckpt] step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
               f"persist_ms={r.persist_s * 1e3:.1f} digest_ms="
@@ -154,7 +291,8 @@ def phase_main_path(store: str, codec: str):
     m = out["metrics"]
     print(f"[main] arch={ARCH} codec={codec} steps={out['final_step']} wall_s={wall:.1f} "
           f"loss={m['loss']:.4f} grad_norm={m['grad_norm']:.4f} "
-          f"chunk_digest_launches={launches}", flush=True)
+          f"chunk_digest_launches={launches} "
+          f"flash_attention_launches={counts['flash_attention']}", flush=True)
     if out["final_step"] != STEPS or not all(map(math.isfinite, m.values())):
         raise SystemExit(f"main path did not finish cleanly: {out['final_step']} {m}")
     if launches <= 0:
@@ -196,6 +334,88 @@ def phase_restart(store: str, final_state) -> dict:
     if not same:
         raise SystemExit("restart diverged from the step-6 image")
     return s6["device"]
+
+
+def _served_position_logits(cfg, params, seq: torch.Tensor) -> torch.Tensor:
+    """The model's forward over ``seq``; f32 logits only at the positions
+    whose next token was served (full-vocab logits everywhere would add
+    10 GB)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import logits_from_embed
+
+    with torch.device("meta"):
+        module = tfm.Transformer(cfg)
+    with torch.no_grad():
+        h = torch.func.functional_call(module, tfm.module_params(params), (seq,))
+        return logits_from_embed(tfm.lm_table(cfg, params), h[:, PROMPT - 1 :])
+
+
+def phase_serve(store: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
+
+    cfg = get_config(ARCH)
+    argv = ["--arch", ARCH, "--ckpt-dir", store, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+    _zero_counts()
+    out = serve.serve(argv + ["--lazy"])
+    counts = _counts()
+    launches = counts["flash_attention"]
+    print(f"[serve] lazy restore_s={out['restore_s']:.3f} ttft_s={out['ttft_s']:.3f} "
+          f"decode_tok_s={out['decode_tok_s']:.1f} step={out['step']} "
+          f"flash_attention_launches={launches} "
+          f"chunk_digest_launches={counts['chunk_digest']}", flush=True)
+    if out["step"] != STEPS:
+        raise SystemExit(f"serve restored step {out['step']}, not {STEPS}")
+    if launches != cfg.num_layers:
+        raise SystemExit(f"prefill made {launches} flash launches, not one per "
+                         f"layer ({cfg.num_layers})")
+    logits = out["logits"]
+    if logits.shape != (SERVE_BATCH, GEN, cfg.vocab_size) or not bool(
+            logits.isfinite().all()):
+        raise SystemExit(f"served logits: {tuple(logits.shape)}, finite="
+                         f"{bool(logits.isfinite().all())}")
+
+    eager = serve.serve(argv)  # same image, eager restore: the same bits
+    same = bool(np.array_equal(eager["tokens"], out["tokens"])
+                and torch.equal(eager["logits"], logits))
+    print(f"[serve] eager restore_s={eager['restore_s']:.3f} "
+          f"ttft_s={eager['ttft_s']:.3f} decode_tok_s={eager['decode_tok_s']:.1f} "
+          f"bitwise_equal_to_lazy={same}", flush=True)
+    if not same:
+        raise SystemExit("eager and lazy serving disagree")
+    del eager
+
+    # teacher forcing: one forward over the prompt and the first GEN - 1
+    # served tokens, in the bf16 model and in its f32 upcast
+    seq = torch.cat([out["prompt"], torch.from_numpy(out["tokens"][:, :-1]).to(
+        out["prompt"].device, torch.int32)], dim=1)
+    params = out["params"]
+    want = _served_position_logits(cfg, params, seq)
+    flat, treedef = flatten_with_paths(params)
+    truth = _served_position_logits(
+        cfg, unflatten_from_paths(treedef, {p: t.float() for p, t in flat.items()}), seq)
+    err = float((logits - want).abs().max())
+    # the served path must be at least as accurate as the dense forward:
+    # no further from the f32 model's logits than the bf16 forward is
+    tol = float((want - truth).abs().max())
+    served_vs_f32 = float((logits - truth).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = torch.from_numpy(out["tokens"]).to(want.device) == want.argmax(dim=-1)
+    print(f"[serve] teacher_forced seq={seq.shape[1]} served_vs_f32={served_vs_f32:.4g} "
+          f"(tol {tol:.4g} = dense-vs-f32) served_vs_dense={err:.4g} "
+          f"max_abs_logit={float(want.abs().max()):.4g} "
+          f"greedy_agree={int(agree.sum())}/{agree.numel()} "
+          f"decided_agree={int((agree & decided).sum())}/{int(decided.sum())}",
+          flush=True)
+    if not served_vs_f32 <= tol or not bool(agree[decided].all()):
+        raise SystemExit("served logits disagree with the teacher-forced forward")
+    del want, truth
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -255,6 +475,57 @@ def phase_timing(device_state, main_launches: int) -> dict:
     return row
 
 
+def phase_flash_timing(serve_launches: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    B, Hq, Hkv, S, D = SERVE_BATCH, 14, 2, PROMPT, 64  # one prefill layer
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16,
+                            torch.Generator(device="cuda").manual_seed(2))
+    kernel = flash_attention.flash_attention
+    got = kernel(q, k, v)  # warm-up, and the comparison
+    want = ref.flash_attention_plain(q, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    ratio = _tol_ratio(got, want)
+    del got, want
+    ms = _time_ms(lambda: kernel(q, k, v), 10)
+    plain_ms = _time_ms(lambda: ref.flash_attention_plain(q, k, v), 2)
+    # the library's fused attention at Sq == Sk, where its top-left causal
+    # mask is the right-aligned one, on the same values with v contiguous
+    # (on the model's transposed view it leaves its fused path); timed
+    # only, never on the path
+    vc = v.contiguous()
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, vc, is_causal=True, enable_gqa=True)
+
+    library()  # warm-up: its first call picks and loads a backend
+    library_ms = _time_ms(library, 10)
+    del vc
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))  # out = q's
+    flops = 4 * B * Hq * D * S * (S + 1) / 2  # q.k and p.v over causal pairs
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_TC_OPS_PER_S * 1e3
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": serve_launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+    print(f"[timing] flash q={tuple(q.shape)} k=v={tuple(k.shape)} bf16 causal "
+          f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} library_ms={library_ms:.3f} "
+          f"bound_ms={row['bound_ms']:.3f} TFLOP/s={flops / ms / 1e9:.1f} "
+          f"max_abs_err={err:.3g} ({ratio:.3g}x the bf16 limit)", flush=True)
+    if not ratio <= 1:
+        raise SystemExit(f"flash_attention disagrees with plain at serve shapes: {err}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--codec", default="none",
@@ -270,12 +541,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
     phase_sweep()
+    phase_flash_sweep()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         store = os.path.join(tmp, "ckpt")
         final_state, launches = phase_main_path(store, args.codec)
         device_state = phase_restart(store, final_state)
-    row = phase_timing(device_state, launches)
-    print(json.dumps({"kernels": [row]}))
+        del final_state
+        served = phase_serve(store)
+    rows = [phase_timing(device_state, launches)]
+    del device_state
+    rows.append(phase_flash_timing(served["launches"]))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ from repro_torch.core.forked import (
     ThreadPersistBackend,
     list_persist_backends,
 )
-from repro_torch.core.restore import RestoreManager
+from repro_torch.core.restore import LazyLeaves, RestoreManager
 from repro_torch.core.drain import drain
 from repro_torch.core.policy import CheckpointPolicy, referenced_steps
 from repro_torch.core.failure import (
@@ -30,7 +30,7 @@ __all__ = [
     "PersistBackend", "PersistJob",
     "ThreadPersistBackend", "ForkPersistBackend",
     "list_persist_backends",
-    "RestoreManager", "drain",
+    "LazyLeaves", "RestoreManager", "drain",
     "CheckpointPolicy", "referenced_steps",
     "HeartbeatMonitor", "RestartBudget", "StragglerPolicy",
     "PreemptionHandler",

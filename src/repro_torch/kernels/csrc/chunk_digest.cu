@@ -114,10 +114,11 @@ digest_chunks(const uint8_t* __restrict__ data, int64_t nbytes,
 
 // data: the leaf's bytes on the device, 4-byte aligned; nbytes > 0.
 // out: (ceil(nbytes / chunk_bytes), 2) int64 on the same device, all zero.
-// The one kernel goes on `stream`; nothing is synchronised or allocated here.
+// The caller makes the tensors' device current. The one kernel goes on
+// `stream`; nothing is synchronised or allocated here.
 extern "C" cudaError_t chunk_digest_launch(const void* data, int64_t nbytes,
                                            int64_t chunk_bytes, void* out,
-                                           int device, cudaStream_t stream) {
+                                           cudaStream_t stream) {
   if (data == nullptr || out == nullptr || nbytes <= 0 || chunk_bytes <= 0 ||
       chunk_bytes % 4 != 0 || reinterpret_cast<uintptr_t>(data) % 4 != 0) {
     return cudaErrorInvalidValue;
@@ -125,10 +126,6 @@ extern "C" cudaError_t chunk_digest_launch(const void* data, int64_t nbytes,
   const int64_t n_chunks = (nbytes + chunk_bytes - 1) / chunk_bytes;
   if (n_chunks > INT32_MAX) {
     return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) {
-    return err;
   }
   const int64_t chunk_words = ((nbytes < chunk_bytes ? nbytes : chunk_bytes) + 3) / 4;
   int64_t per_chunk = (chunk_words + kThreads * kWordsPerThread - 1) /

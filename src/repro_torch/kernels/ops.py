@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.checkpoint.chunking import chunk_digest_np, num_chunks
 from repro_torch.kernels import chunk_digest as _kernel
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
 
@@ -60,3 +61,35 @@ def tree_chunk_digests(state: Any, chunk_bytes: int) -> dict[str, list[int]]:
             for i in range(num_chunks(raw.nbytes, cb))
         ]
     return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Causal GQA attention. q: (B,Hq,Sq,D); k,v: (B,Hkv,Sk,D).
+
+    The reference's entry point and its checks: Hq must divide by Hkv, and
+    Sq, Sk by ``min(block_q, Sq)``, ``min(block_k, Sk)``. On the CPU the
+    plain version runs at those blocks; on the card the kernel, whose own
+    tiling does not depend on them.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"seq lengths ({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
+    if q.device.type == "cpu":
+        return _ref.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                          block_q=bq, block_k=bk)
+    if q.device.type == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
+    raise ValueError(f"no flash_attention kernel for device {q.device}")

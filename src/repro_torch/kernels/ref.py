@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each kernel in this package must agree with its plain version bit for bit
-(digests). The plain versions run on any device; on the CPU they are what
-the kernel wrappers use, and on the card ``chip_smoke.py`` holds each kernel
-against them.
+(digests) or to numerical tolerance (attention). The plain versions run on
+any device; on the CPU they are what the kernel wrappers use, and on the
+card ``chip_smoke.py`` holds each kernel against them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.chunking import num_chunks
@@ -95,3 +96,89 @@ def chunk_digests_plain(x: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
         out[r0:r1, 0] = hi
         out[r0:r1, 1] = lo
     return out
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+_MASKED = -1e30
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, scale: float | None = None,
+    block_q: int = 128, block_k: int = 128,
+) -> torch.Tensor:
+    """Blocked online-softmax attention, the math of the flash kernel.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); kv head = h // (Hq // Hkv).
+    The same steps as the reference's ``_flash_kernel`` and
+    ``_chunked_attention``, in f32: scale, then the right-aligned causal mask
+    (``col <= row + Sk - Sq``) with -1e30, never -inf; ``m``, ``l`` and the
+    accumulator carried over key blocks; ``l == 0 -> 1``; output in q's
+    dtype. A row with no valid key comes out as the mean of v over all Sk.
+    ``Sq`` and ``Sk`` must divide by ``min(block_q, Sq)``, ``min(block_k, Sk)``.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    g = Hq // Hkv
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"seq lengths ({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(D))
+    offset = Sk - Sq
+    qg = q.reshape(B, Hkv, g, Sq, D)
+    out = torch.empty((B, Hkv, g, Sq, D), dtype=q.dtype, device=q.device)
+    for q0 in range(0, Sq, bq):
+        qi = qg[:, :, :, q0 : q0 + bq].float()
+        acc = torch.zeros((B, Hkv, g, bq, D), dtype=torch.float32, device=q.device)
+        m = torch.full((B, Hkv, g, bq, 1), _MASKED, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, Hkv, g, bq, 1), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Sk, bk):
+            kj = k[:, :, k0 : k0 + bk].float()
+            vj = v[:, :, k0 : k0 + bk].float()
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj) * scale
+            if causal:
+                rows = torch.arange(q0, q0 + bq, device=q.device)[:, None] + offset
+                cols = torch.arange(k0, k0 + bk, device=q.device)[None, :]
+                s = torch.where(cols <= rows, s, _MASKED)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vj)
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)
+        out[:, :, :, q0 : q0 + bq] = (acc / l).to(q.dtype)
+    return out.reshape(B, Hq, Sq, D)
+
+
+def mha_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, scale: float | None = None,
+) -> torch.Tensor:
+    """Dense softmax attention oracle (the reference's ``mha_reference``).
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) with Hq % Hkv == 0 (GQA).
+    Returns (B, Hq, Sq, D) in q's dtype; softmax in f32. Masks with -inf,
+    so a row with no valid key is NaN here (the flash kernel's is not).
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    group = Hq // Hkv
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(D))
+    kq = k.repeat_interleave(group, dim=1)
+    vq = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq.float()) * scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vq.float())
+    return out.to(q.dtype)

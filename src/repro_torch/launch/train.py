@@ -44,13 +44,20 @@ from repro_torch.runtime.steps import batch_to_device, make_train_step
 
 
 def resolve_device(name: str) -> torch.device:
-    """The device to train on; a CUDA device must exist (no silent CPU)."""
+    """The device to run on; a CUDA device must exist (no silent CPU).
+
+    A CUDA device comes back with its index, so code that places tensors
+    from other threads (lazy restore's readers) names the card explicitly.
+    """
     dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r} asked for but no CUDA device is available "
-            "(pass --device cpu to run on the CPU)"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {name!r} asked for but no CUDA device is available "
+                "(pass --device cpu to run on the CPU)"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -4,16 +4,20 @@ Conventions, as in the reference's ``models/layers.py``:
   - activations (B, S, D); attention tensors (B, H, S, Dh);
   - weights are (in, out): ``x @ w``;
   - params bf16 (config.param_dtype), accumulation/normalization in f32;
-  - attention here is the dense (materialized-scores) lowering for short
-    sequences. The chunked flash-style lowering the reference uses at
-    S >= ``attn_chunked_threshold`` is not ported yet, and asking for it
-    raises.
+  - attention has the reference's three lowerings: dense (short S),
+    chunked (long S: blocked online softmax, which on the card is the
+    hand-written flash kernel, forward only) and decode (one query token
+    against a cache).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 
 # ---------------------------------------------------------------------------
@@ -35,10 +39,16 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim // 2, dtype=np.float32) * 2 / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    # one host->device copy per table, not one (and a stream wait) per call
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, H, S, Dh); positions: (S,) or scalar broadcast over S."""
     dh = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(dh, theta)).to(x.device)   # (Dh/2,)
+    freqs = _rope_freqs_on(dh, theta, x.device)                      # (Dh/2,)
     angles = positions.float()[..., None] * freqs                   # (S, Dh/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -88,6 +98,28 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Hq, Sq, Dh).to(q.dtype)
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, scale: float, block_q: int,
+                      block_k: int) -> torch.Tensor:
+    """Long-S lowering: the reference's ``_chunked_attention`` (bounded
+    memory, online softmax over key blocks), through ``ops.flash_attention``.
+
+    On the CPU that is the blocked plain version, which autograd can
+    differentiate; on the card it is the flash kernel, which has no
+    backward, so asking for a gradient there raises rather than falling
+    back to the plain version.
+    """
+    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "long-S attention on the card runs the forward-only flash_attention "
+            "kernel: its backward (training at S >= attn_chunked_threshold on "
+            "CUDA) is not ported yet"
+        )
+    return ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                               block_q=block_q, block_k=block_k)
+
+
 def multihead_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True,
@@ -97,13 +129,31 @@ def multihead_attention(
     block_k: int = 1024,
 ) -> torch.Tensor:
     scale = float(scale if scale is not None else 1.0 / np.sqrt(q.shape[-1]))
-    if q.shape[2] >= chunked_threshold and q.shape[2] % min(block_q, q.shape[2]) == 0 \
-            and k.shape[2] % min(block_k, k.shape[2]) == 0:
-        raise NotImplementedError(
-            f"S={q.shape[2]} >= attn_chunked_threshold={chunked_threshold}: "
-            "chunked attention is not ported to PyTorch yet"
-        )
+    bq, bk = min(block_q, q.shape[2]), min(block_k, k.shape[2])
+    if q.shape[2] >= chunked_threshold and q.shape[2] % bq == 0 and k.shape[2] % bk == 0:
+        return chunked_attention(q, k, v, causal=causal, scale=scale,
+                                 block_q=bq, block_k=bk)
     return dense_attention(q, k, v, causal=causal, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: int, *, scale: float | None = None) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: (B, Hq, 1, Dh); caches: (B, Hkv, S, Dh); pos: the index of the token
+    being generated (attends to cache[: pos + 1]).
+    """
+    B, Hq, _, Dh = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(Dh))
+    qg = q.reshape(B, Hkv, g, Dh)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float()) * scale
+    ok = torch.arange(S, device=q.device) <= pos
+    s = torch.where(ok, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return o.reshape(B, Hq, 1, Dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -11,18 +11,26 @@ device (no storage) and runs it with ``torch.func.functional_call`` on the
 state's tensors — the same split as the reference's pure functions over a
 param pytree. ``init_params`` makes those tensors.
 
+Serving: ``prefill`` runs the forward over a prompt and keeps the stacked
+post-RoPE k/v cache, ``decode_step`` runs one token against it. The cache
+is the server's own buffer, so a decode step writes the new k/v into it in
+place (the reference returns a new array).
+
 Not ported: activation rematerialisation (``cfg.remat``, which only saves
-memory), MoE blocks, prefill/decode with a KV cache.
+memory), MoE blocks, ``prefix_len`` (prefix-LM masking).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
+    decode_attention,
     embed_lookup,
     logits_from_embed,
     mlp_apply,
@@ -30,6 +38,7 @@ from repro_torch.models.layers import (
     rmsnorm,
 )
 from repro_torch.utils.dtypes import torch_dtype
+from repro_torch.utils.tree import flatten_with_paths
 
 
 def _param(*shape: int, dtype: torch.dtype) -> nn.Parameter:
@@ -91,8 +100,8 @@ class Blocks(nn.Module):
             self.ln2 = _param(cfg.num_layers, cfg.d_model, dtype=dtype)
 
     def layer(self, cfg: ModelConfig, i: int, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-        B, S, _ = x.shape
+              positions: torch.Tensor):
+        """Layer i over (B, S, D) -> (x, post-RoPE k, v (B, Hkv, S, Dh))."""
         h = rmsnorm(x, self.ln1[i], cfg.norm_eps)
         q, k, v = self.attn.qkv(cfg, i, h)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -102,6 +111,26 @@ class Blocks(nn.Module):
             chunked_threshold=cfg.attn_chunked_threshold,
             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         )
+        return self._finish(cfg, i, x, h, attn_out), k, v
+
+    def decode_layer(self, cfg: ModelConfig, i: int, x: torch.Tensor, pos: int,
+                     positions: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor) -> torch.Tensor:
+        """Layer i for one token (B, 1, D) at ``pos`` (``positions`` is
+        ``[pos]`` on x's device); writes its k/v into the layer's cache
+        (B, Hkv, Smax, Dh) in place."""
+        h = rmsnorm(x, self.ln1[i], cfg.norm_eps)
+        q, k, v = self.attn.qkv(cfg, i, h)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        k_cache[:, :, pos] = k[:, :, 0].to(k_cache.dtype)
+        v_cache[:, :, pos] = v[:, :, 0].to(v_cache.dtype)
+        attn_out = decode_attention(q, k_cache, v_cache, pos)
+        return self._finish(cfg, i, x, h, attn_out)
+
+    def _finish(self, cfg: ModelConfig, i: int, x: torch.Tensor, h: torch.Tensor,
+                attn_out: torch.Tensor) -> torch.Tensor:
+        B, S, _ = x.shape
         attn_out = attn_out.transpose(1, 2).reshape(B, S, cfg.q_dim)
         attn_out = attn_out @ self.attn.wo[i]
         if cfg.parallel_block:
@@ -132,17 +161,48 @@ class Transformer(nn.Module):
     def lm_table(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.lm_head
 
-    def forward(self, tokens: torch.Tensor, *, logits: bool = False) -> torch.Tensor:
-        cfg = self.cfg
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         x = embed_lookup(self.embed, tokens)
-        if cfg.embed_scale:
-            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(np.sqrt(self.cfg.d_model), dtype=x.dtype,
                                  device=x.device)
+        return x
+
+    def forward(self, tokens: torch.Tensor, *, logits: bool = False,
+                return_cache: bool = False, cache: dict | None = None):
+        """The full forward, or with ``cache`` one decode step.
+
+        Without ``cache``: tokens (B, S) -> final hidden (B, S, D), or f32
+        logits (B, S, V) with ``logits``; with ``return_cache`` also
+        ``{"k", "v"}``, the stacked post-RoPE k/v (L, B, Hkv, S, Dh).
+
+        With ``cache`` (``{"k", "v"}`` of (L, B, Hkv, Smax, Dh) and ``pos``,
+        the index the new token is written at): tokens (B,) -> f32 logits
+        (B, V). The new k/v go into the cache's buffers in place.
+        """
+        cfg = self.cfg
+        if cache is not None:
+            pos = int(cache["pos"])
+            x = self.embed_tokens(tokens[:, None])
+            positions = torch.tensor([pos], device=x.device)
+            for i in range(cfg.num_layers):
+                x = self.blocks.decode_layer(cfg, i, x, pos, positions,
+                                             cache["k"][i], cache["v"][i])
+            x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+            return logits_from_embed(self.lm_table(), x)[:, 0]
+        x = self.embed_tokens(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        ks, vs = [], []
         for i in range(cfg.num_layers):
-            x = self.blocks.layer(cfg, i, x, positions)
+            x, k, v = self.blocks.layer(cfg, i, x, positions)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return logits_from_embed(self.lm_table(), x) if logits else x
+        out = logits_from_embed(self.lm_table(), x) if logits else x
+        if return_cache:
+            return out, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -189,3 +249,64 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(cfg.vocab_size, D, scale=0.02)
     return params
+
+
+# ---------------------------------------------------------------------------
+# running the module on a params dict
+# ---------------------------------------------------------------------------
+
+def module_params(params: dict) -> dict[str, torch.Tensor]:
+    """Nested params -> ``{"blocks.attn.wq": tensor}`` for functional_call."""
+    flat, _ = flatten_with_paths(params)
+    return {path.replace("/", "."): t for path, t in flat.items()}
+
+
+def lm_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill and decode with a KV cache
+# ---------------------------------------------------------------------------
+
+def prefill(module: Transformer, params: dict, tokens: torch.Tensor,
+            cache_len: int | None = None, prefix_len: int | None = None):
+    """Build a KV cache of size ``cache_len`` (>= S); returns (logits, cache).
+
+    tokens (B, S) -> f32 logits of the last position only (B, 1, V), and
+    ``{"k", "v"}`` (L, B, Hkv, cache_len, Dh) zero-padded past S, with
+    ``pos`` = S, the index the next token is written at.
+    """
+    if prefix_len is not None:
+        raise NotImplementedError("prefix_len (prefix-LM serving) is not ported yet")
+    B, S = tokens.shape
+    cache_len = cache_len or S
+    h, cache = functional_call(module, module_params(params), (tokens,),
+                               {"return_cache": True})
+    k, v = cache["k"], cache["v"]
+    if cache_len > S:
+        k = F.pad(k, (0, 0, 0, cache_len - S))
+        v = F.pad(v, (0, 0, 0, cache_len - S))
+    logits = logits_from_embed(lm_table(module.cfg, params), h[:, -1:, :])
+    return logits, {"k": k, "v": v, "pos": S}
+
+
+def decode_step(module: Transformer, params: dict, cache: dict, tokens: torch.Tensor):
+    """One decode step. tokens: (B,) int; cache k/v: (L, B, Hkv, Smax, Dh).
+
+    Returns (logits (B, V) f32, cache): the same k/v buffers, written in
+    place at ``pos``, and ``pos + 1``.
+    """
+    logits = functional_call(module, module_params(params), (tokens,), {"cache": cache})
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": int(cache["pos"]) + 1}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+               device: torch.device | str, dtype: torch.dtype | None = None) -> dict:
+    dtype = dtype or torch_dtype(cfg.param_dtype)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": 0,
+    }

@@ -3,9 +3,12 @@
 ``build(cfg)`` returns a ``Model`` whose functions take the params as a
 nested dict of tensors (the checkpointed state), like the reference's:
 
-    init(generator)        -> params
-    loss(params, batch)    -> (scalar f32 loss, metrics dict)
-    forward(params, batch) -> logits (B, S, V) f32
+    init(generator)                   -> params
+    loss(params, batch)               -> (scalar f32 loss, metrics dict)
+    forward(params, batch)            -> logits (B, S, V) f32
+    prefill(params, batch, cache_len) -> (logits (B, 1, V) f32, cache)
+    decode(params, cache, tokens)     -> (logits (B, V) f32, cache)
+    init_cache(batch, cache_len, device=...) -> cache
 
 The ``nn.Module`` program lives on the ``meta`` device and runs on the
 params through ``torch.func.functional_call``.
@@ -21,7 +24,7 @@ from torch.func import functional_call
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import logits_from_embed
-from repro_torch.utils.tree import flatten_with_paths
+from repro_torch.models.transformer import lm_table, module_params
 
 
 # ---------------------------------------------------------------------------
@@ -84,12 +87,9 @@ class Model:
     init: Callable
     loss: Callable
     forward: Callable
-
-
-def module_params(params: dict) -> dict[str, torch.Tensor]:
-    """Nested params -> ``{"blocks.attn.wq": tensor}`` for functional_call."""
-    flat, _ = flatten_with_paths(params)
-    return {path.replace("/", "."): t for path, t in flat.items()}
+    prefill: Callable
+    decode: Callable
+    init_cache: Callable
 
 
 def _build_dense(cfg: ModelConfig) -> Model:
@@ -101,7 +101,7 @@ def _build_dense(cfg: ModelConfig) -> Model:
 
     def loss(params, batch):
         h = hidden(params, batch["inputs"])
-        table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        table = lm_table(cfg, params)
         if cfg.ce_chunk_tokens:
             l, ce = chunked_lm_xent(
                 h, table, batch["targets"], chunk_tokens=cfg.ce_chunk_tokens
@@ -121,6 +121,13 @@ def _build_dense(cfg: ModelConfig) -> Model:
         init=lambda generator: tfm.init_params(cfg, generator),
         loss=loss,
         forward=forward,
+        prefill=lambda params, batch, cache_len: tfm.prefill(
+            module, params, batch["inputs"], cache_len
+        ),
+        decode=lambda params, cache, tokens: tfm.decode_step(module, params, cache, tokens),
+        init_cache=lambda batch, cache_len, *, device: tfm.init_cache(
+            cfg, batch, cache_len, device=device
+        ),
     )
 
 

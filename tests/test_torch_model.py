@@ -1,7 +1,7 @@
 """PyTorch port: model, loss, gradients and AdamW against the JAX reference.
 
 A reduced qwen2 (``reduced_for_smoke``: 2 layers, d_model 128, f32) with S
-below the chunked-attention threshold. Parity is by weight transfer: the
+below the chunked-attention threshold, and at and above it. Parity is by weight transfer: the
 reference initialises, its arrays cross to the port as numpy, and both
 compute on the same inputs. Tolerances are for f32 on the CPU, where the
 two frameworks order their sums differently: 1e-5 (abs and rel) for
@@ -157,9 +157,21 @@ def test_chunked_ce_equals_full_ce(chunk_tokens):
         _close(a, c, 1e-5)
 
 
-def test_chunked_attention_length_raises(cfg, ref_params):
-    model = build(cfg)
+@pytest.mark.parametrize("mult", [1, 2])
+def test_long_sequence_forward_matches_reference(cfg, ref_cfg, ref_params, mult):
+    """S = attn_chunked_threshold and twice it: both models take their
+    long-S lowering (the reference's ``_chunked_attention``, the port's
+    ``ops.flash_attention``), forward and loss."""
+    rng = np.random.default_rng(4)
+    S_long = cfg.attn_chunked_threshold * mult
+    toks = rng.integers(0, cfg.vocab_size, (B, S_long + 1)).astype(np.int32)
+    long_batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    rmodel = rmodels.build(ref_cfg)
     tparams = state_from_numpy(_np(ref_params))
-    toks = torch.zeros((1, cfg.attn_chunked_threshold), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="chunked attention"):
-        model.forward(tparams, {"inputs": toks})
+    jb = jax.tree.map(jnp.asarray, long_batch)
+    with torch.no_grad():
+        logits = build(cfg).forward(tparams, _tb(long_batch))
+        loss, _ = build(cfg).loss(tparams, _tb(long_batch))
+    assert logits.shape == (B, S_long, cfg.vocab_size)
+    _close(logits, rmodel.forward(ref_params, jb), 1e-5)
+    _close(loss, rmodel.loss(ref_params, jb)[0], 1e-5)
