@@ -14,10 +14,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    partial last chunks, one leaf over 2**31 bytes) and chunk sizes, and
    against the host oracle ``chunk_digest_np`` on a subset;
    the ``flash_attention`` CUDA kernel against ``flash_attention_plain``
-   over the reference test's shapes (causal and not), f32/bf16/f16, head
-   dims 32/64/128, a ``scale`` override, rows with no key (Sq > Sk), a
-   group of 7 with ragged tiles and the serve path's own shapes, with a
-   stated tolerance per dtype that must catch a dropped key tile;
+   over the reference test's shapes (causal and not), f32 (the CUDA-core
+   route) and bf16/f16 (the tensor-core route), head dims 32/64/128, a
+   ``scale`` override, rows with no key (Sq > Sk), a group of 7 with ragged
+   tiles and the serve path's own shapes, with a stated tolerance per dtype
+   that must catch a dropped key tile (and the reading of a P rounded once
+   to bf16, which is why the kernel splits P in two);
 3. the training path through ``repro_torch.launch.train``: qwen2-0.5b at full
    width and depth, batch 4, seq 512, 6 steps, a checkpoint every 2 steps
    with the fork persist backend. The codec is ``none`` by default, not the
@@ -31,16 +33,17 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    restored with ``verify``, which re-digests every chunk on the host);
 5. the serving path through ``repro_torch.launch.serve``: lazy restore of
    the step-6 params onto the card, prefill of 2 x 8192 tokens (every
-   layer's attention is one flash launch: 24 per prefill, zeroed just
-   before and read just after), 32 greedy tokens; an eager serve must give
+   layer's attention is one flash launch on the tensor-core route: 24 per
+   prefill, zeroed just before and read just after), 32 greedy tokens; an eager serve must give
    the same bits, and the 32 served logits must lie no further from the
    f32 model's than one bf16 forward over prompt + 31 served tokens (the
    dense lowering) does (teacher forcing);
 6. each kernel's time on the card at its path's shapes (``chunk_digest``:
    the 43 leaves of the train state, 1 MiB chunks; ``flash_attention``:
    one layer of the prefill), its bound, the plain version's time and,
-   for attention, ``scaled_dot_product_attention``'s, printed as one
-   ``{"kernels": [...]}`` JSON line;
+   for attention, ``scaled_dot_product_attention``'s (the kernel's ratio to
+   it and its share of the bound on the ``[timing] flash`` line), printed as
+   one ``{"kernels": [...]}`` JSON line;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is available.
@@ -195,7 +198,8 @@ def _tol_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
 
 
-def _flash_vs_plain(q, k, v, *, causal=True, scale=None) -> float:
+def _flash_vs_plain(q, k, v, *, causal=True, scale=None):
+    """The kernel against the plain version: (max abs error, plain output)."""
     from repro_torch.kernels import flash_attention
 
     got = flash_attention.flash_attention(q, k, v, causal=causal, scale=scale)
@@ -210,10 +214,45 @@ def _flash_vs_plain(q, k, v, *, causal=True, scale=None) -> float:
         torch.testing.assert_close(
             got[:, :, : Sq - Sk].float(),
             mean[:, :, None].expand(-1, -1, Sq - Sk, -1), atol=atol, rtol=rtol)
-    return float((got.float() - want.float()).abs().max())
+    return float((got.float() - want.float()).abs().max()), want
+
+
+def _plain_p_rounded_once(q, k, v) -> torch.Tensor:
+    """The plain version (causal, 128 x 128 blocks) with P rounded once to
+    q's dtype before P V: what a kernel that skips the P_hi + P_lo split
+    computes, up to the sum order. l stays the sum of the f32 P."""
+    masked = -1e30  # the plain version's masked logit
+    B, Hq, S, D = q.shape
+    g = Hq // k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    for q0 in range(0, S, 128):
+        qi = q[:, :, q0 : q0 + 128].float()
+        acc = torch.zeros((B, Hq, 128, D), device=q.device)
+        m = torch.full((B, Hq, 128, 1), masked, device=q.device)
+        l = torch.zeros((B, Hq, 128, 1), device=q.device)
+        for k0 in range(0, q0 + 128, 128):
+            kj = k[:, :, k0 : k0 + 128].float().repeat_interleave(g, dim=1)
+            vj = v[:, :, k0 : k0 + 128].float().repeat_interleave(g, dim=1)
+            s = torch.einsum("bhqd,bhkd->bhqk", qi, kj) * scale
+            rows = torch.arange(q0, q0 + 128, device=q.device)[:, None]
+            cols = torch.arange(k0, k0 + 128, device=q.device)[None, :]
+            s = torch.where(cols <= rows, s, masked)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            pr = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + pr.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", pr.to(q.dtype).float(), vj)
+            m = m_new
+        out[:, :, q0 : q0 + 128] = (acc / l).to(q.dtype)
+    return out
 
 
 def phase_flash_sweep() -> None:
+    from repro_torch.kernels import flash_attention
+
+    by_route = flash_attention.flash_attention.launches_by_route
+    before = dict(by_route)
     gen = torch.Generator(device="cuda").manual_seed(1)
     shapes = [  # (B, Hq, Hkv, Sq, Sk, D)
         (1, 1, 1, 128, 128, 64), (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 128, 128),
@@ -226,33 +265,37 @@ def phase_flash_sweep() -> None:
     for dtype in FLASH_TOL:
         for shape in shapes:
             for causal in (True, False):
-                err = _flash_vs_plain(*_flash_inputs(*shape, dtype, gen), causal=causal)
+                err, _ = _flash_vs_plain(*_flash_inputs(*shape, dtype, gen), causal=causal)
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
                 cases += 1
-        err = _flash_vs_plain(*_flash_inputs(1, 1, 1, 128, 128, 64, dtype, gen), scale=0.5)
+        err, _ = _flash_vs_plain(*_flash_inputs(1, 1, 1, 128, 128, 64, dtype, gen),
+                                 scale=0.5)
         worst[dtype] = max(worst[dtype], err)
         cases += 1
     # the serve path's prefill, one layer: qwen2-0.5b heads at 8192 tokens
     q, k, v = _flash_inputs(SERVE_BATCH, 14, 2, PROMPT, PROMPT, 64, torch.bfloat16, gen)
-    serve = _flash_vs_plain(q, k, v)
+    serve, want = _flash_vs_plain(q, k, v)
     cases += 1
+    # why the kernel splits P in two: what one rounding of P would read
+    once_ratio = _tol_ratio(_plain_p_rounded_once(q, k, v), want)
     # what the tolerance reads for a wrong kernel: the last 128 rows (the
     # longest, where one key tile weighs least) with their first key tile
     # dropped; the right-aligned mask keeps every other key of those rows
     T = 128
-    want = _plain(q[:, :, -T:], k, v)
+    want = want[:, :, -T:]
     dropped = _plain(q[:, :, -T:], k[:, :, T:], v[:, :, T:])
     drop_err = float((dropped.float() - want.float()).abs().max())
     drop_ratio = _tol_ratio(dropped, want)
     del q, k, v, want, dropped
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"[flash-sweep] cases={cases} " + " ".join(
+    routes = {r: n - before[r] for r, n in by_route.items()}
+    print(f"[flash-sweep] cases={cases} routes={routes} " + " ".join(
         f"{str(d).replace('torch.', '')}_max_abs_err={e:.3g} (atol {FLASH_TOL[d][0]:g} "
         f"rtol {FLASH_TOL[d][1]:g})" for d, e in worst.items())
         + f" serve_shape_max_abs_err={serve:.3g}: within tolerance; one key tile "
-        f"dropped reads max_abs_err={drop_err:.3g}, {drop_ratio:.3g}x the limit",
-        flush=True)
+        f"dropped reads max_abs_err={drop_err:.3g}, {drop_ratio:.3g}x the limit; "
+        f"one rounding of P (no split) reads {once_ratio:.3g}x it", flush=True)
     if drop_ratio <= 1:
         raise SystemExit("the bf16 tolerance does not see a dropped key tile")
 
@@ -262,13 +305,16 @@ def _zero_counts() -> None:
 
     chunk_digest.chunk_digests.launches = 0
     flash_attention.flash_attention.launches = 0
+    for route in flash_attention.flash_attention.launches_by_route:
+        flash_attention.flash_attention.launches_by_route[route] = 0
 
 
 def _counts() -> dict:
     from repro_torch.kernels import chunk_digest, flash_attention
 
     return {"chunk_digest": chunk_digest.chunk_digests.launches,
-            "flash_attention": flash_attention.flash_attention.launches}
+            "flash_attention": flash_attention.flash_attention.launches,
+            "flash_attention_by_route": dict(flash_attention.flash_attention.launches_by_route)}
 
 
 def phase_main_path(store: str, codec: str):
@@ -365,12 +411,16 @@ def phase_serve(store: str) -> dict:
     print(f"[serve] lazy restore_s={out['restore_s']:.3f} ttft_s={out['ttft_s']:.3f} "
           f"decode_tok_s={out['decode_tok_s']:.1f} step={out['step']} "
           f"flash_attention_launches={launches} "
+          f"by_route={counts['flash_attention_by_route']} "
           f"chunk_digest_launches={counts['chunk_digest']}", flush=True)
     if out["step"] != STEPS:
         raise SystemExit(f"serve restored step {out['step']}, not {STEPS}")
     if launches != cfg.num_layers:
         raise SystemExit(f"prefill made {launches} flash launches, not one per "
                          f"layer ({cfg.num_layers})")
+    if counts["flash_attention_by_route"]["wgmma"] != launches:
+        raise SystemExit(f"prefill launches did not all take the tensor-core route: "
+                         f"{counts['flash_attention_by_route']}")
     logits = out["logits"]
     if logits.shape != (SERVE_BATCH, GEN, cfg.vocab_size) or not bool(
             logits.isfinite().all()):
@@ -500,8 +550,16 @@ def phase_flash_timing(serve_launches: int) -> dict:
     def library():
         return F.scaled_dot_product_attention(q, k, vc, is_causal=True, enable_gqa=True)
 
+    # timed with this run's deterministic algorithms (its pick then) and
+    # without them, where it may pick a faster backend; the faster is the
+    # yardstick
     library()  # warm-up: its first call picks and loads a backend
-    library_ms = _time_ms(library, 10)
+    library_det_ms = _time_ms(library, 10)
+    torch.use_deterministic_algorithms(False)
+    library()
+    library_free_ms = _time_ms(library, 10)
+    torch.use_deterministic_algorithms(True)
+    library_ms = min(library_det_ms, library_free_ms)
     del vc
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))  # out = q's
     flops = 4 * B * Hq * D * S * (S + 1) / 2  # q.k and p.v over causal pairs
@@ -518,8 +576,10 @@ def phase_flash_timing(serve_launches: int) -> dict:
         "library_ms": library_ms,
     }
     print(f"[timing] flash q={tuple(q.shape)} k=v={tuple(k.shape)} bf16 causal "
-          f"kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} library_ms={library_ms:.3f} "
-          f"bound_ms={row['bound_ms']:.3f} TFLOP/s={flops / ms / 1e9:.1f} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.1f} library_ms={library_ms:.4f} "
+          f"(deterministic {library_det_ms:.4f}, not {library_free_ms:.4f}) "
+          f"kernel/library={ms / library_ms:.3f} bound_ms={row['bound_ms']:.4f} "
+          f"bound/kernel={row['bound_ms'] / ms:.3f} TFLOP/s={flops / ms / 1e9:.1f} "
           f"max_abs_err={err:.3g} ({ratio:.3g}x the bf16 limit)", flush=True)
     if not ratio <= 1:
         raise SystemExit(f"flash_attention disagrees with plain at serve shapes: {err}")

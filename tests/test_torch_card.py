@@ -109,7 +109,8 @@ def test_restart_on_card_is_bitwise(deterministic, tmp_path, backend):
 
 
 # (B, Hq, Hkv, Sq, Sk, D, causal): the reference test's shapes, non-causal,
-# rows with no key (Sq > Sk), qwen2-0.5b's group of 7, ragged 64-row tiles
+# rows with no key (Sq > Sk), qwen2-0.5b's group of 7, ragged tiles, head
+# dims 32 and 128 with ragged tiles and rows with no key
 FLASH_CASES = [
     (1, 1, 1, 128, 128, 64, True),
     (2, 4, 2, 256, 256, 64, True),
@@ -120,6 +121,11 @@ FLASH_CASES = [
     (1, 2, 1, 256, 128, 64, True),
     (1, 14, 2, 200, 200, 64, True),
     (1, 14, 2, 120, 200, 64, True),
+    (1, 14, 2, 200, 120, 64, True),
+    (1, 2, 1, 200, 120, 128, True),
+    (1, 2, 1, 200, 200, 128, False),
+    (1, 4, 2, 200, 120, 32, True),
+    (1, 4, 2, 120, 200, 32, False),
 ]
 # (atol, rtol): f32 for the two sum orders; bf16 / f16 one ulp of the
 # output plus the sum order where the output is near 0
@@ -142,9 +148,12 @@ def _block(n: int) -> int:
 def test_flash_kernel_matches_plain(cuda, dtype, case):
     B, Hq, Hkv, Sq, Sk, D, causal = case
     q, k, v = _flash_inputs(cuda, B, Hq, Hkv, Sq, Sk, D, dtype)
+    route = "simt" if dtype == torch.float32 else "wgmma"
     before = flash_attention.flash_attention.launches
+    before_route = flash_attention.flash_attention.launches_by_route[route]
     got = flash_attention.flash_attention(q, k, v, causal=causal)
     assert flash_attention.flash_attention.launches == before + 1
+    assert flash_attention.flash_attention.launches_by_route[route] == before_route + 1
     want = ref.flash_attention_plain(q, k, v, causal=causal,
                                      block_q=_block(Sq), block_k=_block(Sk))
     assert got.dtype == dtype and got.shape == q.shape
@@ -181,6 +190,45 @@ def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash_attention.flash_attention(*_flash_inputs(cuda, 1, 3, 2, 64, 64, 64,
                                                        torch.float32))
+
+
+def _misaligned_v_views(cuda, dtype):
+    """The model's transposed v view with a head stride of D + 1 elements
+    (not a multiple of 16 bytes in 16 bits), and one whose data pointer is
+    one element past a 16-byte boundary, beside a v of the same values."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    wide = torch.randn((1, 256, 2, 65), generator=g, device=cuda).to(dtype)
+    return wide[..., :64].transpose(1, 2), wide[..., 1:].transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_tensor_core_route_refuses_misaligned_v(cuda, dtype):
+    q, k, _ = _flash_inputs(cuda, 1, 4, 2, 256, 256, 64, dtype)
+    strided, offset = _misaligned_v_views(cuda, dtype)
+    before = dict(flash_attention.flash_attention.launches_by_route)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        flash_attention.flash_attention(q, k, strided)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention.flash_attention(q, k, offset)
+    assert flash_attention.flash_attention.launches_by_route == before
+
+
+def test_flash_cuda_core_route_takes_misaligned_v(cuda):
+    q, k, _ = _flash_inputs(cuda, 1, 4, 2, 256, 256, 64, torch.float32)
+    for v in _misaligned_v_views(cuda, torch.float32):
+        got = flash_attention.flash_attention(q, k, v)
+        want = ref.flash_attention_plain(q, k, v.contiguous())
+        atol, rtol = FLASH_TOL[torch.float32]
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+def test_flash_kernel_same_bits_run_to_run(cuda):
+    """No atomics and no split of a row's keys: one input, one output."""
+    q, k, v = _flash_inputs(cuda, 1, 14, 2, 4096, 4096, 64, torch.bfloat16)
+    v = v.transpose(1, 2).contiguous().transpose(1, 2)  # the model's v view
+    first = flash_attention.flash_attention(q, k, v)
+    for _ in range(3):
+        assert torch.equal(flash_attention.flash_attention(q, k, v), first)
 
 
 def test_ops_flash_on_card_never_runs_the_plain_version(cuda, monkeypatch):

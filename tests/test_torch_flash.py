@@ -152,3 +152,91 @@ def test_entry_point_refuses_other_devices():
     k = torch.empty((1, 1, 64, 64), device="meta")
     with pytest.raises(ValueError, match="no flash_attention kernel for device"):
         ops.flash_attention(q, k, k)
+
+
+# The kernel wrapper's route and layout checks, as a pure function of dtype,
+# shapes, strides and data pointers: no card needed.
+_SERVE = ((2, 14, 8192, 64), (2, 2, 8192, 64))
+
+
+def _plan(dtype, shapes=_SERVE, strides=None, ptrs=(0, 0, 0)):
+    qs, ks = shapes
+    strides = strides or [torch.empty(s, device="meta").stride() for s in (qs, ks, ks)]
+    return kernel.launch_plan(dtype, (qs, ks, ks), strides, ptrs)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"), (torch.bfloat16, "wgmma"),
+                                         (torch.float16, "wgmma")])
+def test_route_is_fixed_by_dtype(dtype, route):
+    assert kernel.route(dtype) == route
+    r, maps = _plan(dtype)
+    assert r == route
+    assert (maps is None) == (route == "simt")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32, torch.float8_e4m3fn])
+def test_route_refuses_other_dtypes(dtype):
+    with pytest.raises(ValueError, match="takes float32, bfloat16 or float16"):
+        kernel.route(dtype)
+
+
+def test_tensor_maps_of_contiguous_operands():
+    """(B, H, S, D) contiguous: the map is (D, S, H, B) with the tensor's
+    byte strides, S in slot 1 and H in slot 2."""
+    _, (mq, mk, mv) = _plan(torch.bfloat16)
+    assert mq == (64, 8192, 14, 2, 128, 8192 * 128, 14 * 8192 * 128, 1 | 2 << 2)
+    assert mk == mv == (64, 8192, 2, 2, 128, 8192 * 128, 2 * 8192 * 128, 1 | 2 << 2)
+
+
+def test_tensor_map_of_the_models_transposed_v():
+    """The model's v is (B, Sk, Hkv, D) seen as (B, Hkv, Sk, D): strides
+    (Sk*Hkv*D, D, Hkv*D, 1). H has the smaller stride, so the map is
+    (D, H, S, B) and S sits in slot 2: the same bytes, no copy."""
+    B, Hkv, Sk, D = 2, 2, 8192, 64
+    v = torch.empty((B, Sk, Hkv, D), dtype=torch.bfloat16, device="meta").transpose(1, 2)
+    assert v.stride() == (Sk * Hkv * D, D, Hkv * D, 1)
+    m = kernel.tensor_map("v", v.shape, v.stride(), 2, 0)
+    assert m == (D, Hkv, Sk, B, D * 2, Hkv * D * 2, Sk * Hkv * D * 2, 2 | 1 << 2)
+
+
+def test_tensor_map_puts_size_one_dims_last():
+    m = kernel.tensor_map("q", (1, 1, 100, 64), (6400, 6400, 64, 1), 2, 0)
+    assert m[:4] == (64, 100, 1, 1)
+    assert m[4] == 128 and m[5] == m[6] and m[5] % 16 == 0 and m[5] >= 100 * 128
+    assert m[7] == 1 | 2 << 2
+
+
+# the model's v view over a (1, 8192, 2, 65) buffer cut to D = 64: strides
+# (2*65*8192, 65, 2*65, 1), so 260 bytes between keys in 16 bits
+_WIDE_V = [(524288, 65536, 64, 1), (65536, 8192, 64, 1), (65 * 2 * 8192, 65, 65 * 2, 1)]
+_SMALL = ((1, 8, 1024, 64), (1, 2, 8192, 64))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shapes,strides,ptrs,match", [
+    (_SMALL, _WIDE_V, (0, 0, 0), "v's s stride of 260 bytes is not a positive multiple of 16"),
+    (_SERVE, None, (0, 2, 0), "k's data pointer is not 16-byte aligned"),
+    (_SERVE, None, (8, 0, 0), "q's data pointer is not 16-byte aligned"),
+], ids=["v-stride", "k-pointer", "q-pointer"])
+def test_tensor_core_route_refuses_what_tma_cannot_read(dtype, shapes, strides, ptrs, match):
+    with pytest.raises(ValueError, match=match):
+        _plan(dtype, shapes, strides, ptrs)
+
+
+def test_cuda_core_route_takes_any_stride_and_pointer():
+    """f32 reads element by element: no TMA layout rules."""
+    assert _plan(torch.float32, _SMALL, _WIDE_V, (4, 4, 4)) == ("simt", None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,strides,match", [
+    (((1, 2, 64, 48), (1, 1, 64, 48)), None, "head dim D"),
+    (((1, 3, 64, 64), (1, 2, 64, 64)), None, "multiple of Hkv"),
+    (((1, 2, 64, 64), (2, 1, 64, 64)), None, "disagree on batch or head dim"),
+    (((1, 2, 0, 64), (1, 1, 64, 64)), None, "non-empty"),
+    (((1, 2, 64, 64), (1, 1, 64, 64)),
+     [(8192, 4096, 64, 1), (4096, 4096, 1, 64), (4096, 4096, 64, 1)], "unit stride"),
+])
+def test_launch_plan_refuses_bad_shapes_on_both_routes(dtype, shapes, strides, match):
+    with pytest.raises(ValueError, match=match):
+        _plan(dtype, shapes, strides)
