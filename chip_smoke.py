@@ -12,7 +12,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero
 2. the ``chunk_digest`` CUDA kernel against its plain PyTorch version on the
    card over a sweep of dtypes, sizes (empty, 0-d, ``nbytes % 4 != 0``,
    partial last chunks, one leaf over 2**31 bytes) and chunk sizes, and
-   against the host oracle ``chunk_digest_np`` on a subset;
+   against the host oracle ``chunk_digest_np`` on a subset; then grouped
+   calls (one launch per ``chunk_digest.CAPACITY`` non-empty leaves, which
+   the phase checks): all those leaves in one call, views whose starts are
+   off the 16-byte grid, chunk sizes that are multiples of 4 but not of 16,
+   more leaves than one launch takes, and the 2**31-byte leaf in a group;
    the ``flash_attention`` CUDA kernel against ``flash_attention_plain``
    over the reference test's shapes (causal and not), f32 (the CUDA-core
    route) and bf16/f16 (the tensor-core route), head dims 32/64/128, a
@@ -27,7 +31,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    host compression, which at ``pgzip`` compresses 4.94 GB per checkpoint
    on the host and takes most of the time limit (``--codec pgzip`` runs the
    CLI default). Every kernel's launch count is zeroed just before and
-   read just after; ``chunk_digest``'s must be > 0;
+   read just after; ``chunk_digest``'s must be > 0, and every shadow sync
+   that digests must make at most ceil(tensor leaves / capacity) launches
+   (1 for the 43 leaves of this state);
 4. restart: restore step 4 onto the card, run steps 5 and 6, and require
    the state to equal the stored step-6 image bit for bit (that image is
    restored with ``verify``, which re-digests every chunk on the host);
@@ -39,10 +45,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    f32 model's than one bf16 forward over prompt + 31 served tokens (the
    dense lowering) does (teacher forcing);
 6. each kernel's time on the card at its path's shapes (``chunk_digest``:
-   the 43 leaves of the train state, 1 MiB chunks; ``flash_attention``:
-   one layer of the prefill), its bound, the plain version's time and,
-   for attention, ``scaled_dot_product_attention``'s (the kernel's ratio to
-   it and its share of the bound on the ``[timing] flash`` line), printed as
+   one grouped call over the 43 leaves of the train state in 1 MiB chunks,
+   the table's allocation included, as a sync makes it, beside the same
+   kernel called once per leaf, ``per_leaf_ms``; ``flash_attention``: one
+   layer of the prefill), its bound, the plain version's time and, for
+   attention, ``scaled_dot_product_attention``'s (the kernel's ratio to it
+   and its share of the bound on the ``[timing] flash`` line), printed as
    one ``{"kernels": [...]}`` JSON line;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -132,7 +140,7 @@ def _host_digests(x: torch.Tensor, cb: int) -> np.ndarray:
 
 
 def phase_sweep() -> None:
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import chunk_digest, ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = [torch.float32, torch.bfloat16, torch.float16, torch.int32,
@@ -141,33 +149,76 @@ def phase_sweep() -> None:
               (1 << 20,), ((3 << 20) + 7,)]
     chunks = [64, 4096, 1 << 20, 4 << 20]
     cases = mismatches = host_checked = 0
+    leaves, plain = [], {cb: [] for cb in chunks}
     for dtype in dtypes:
         for shape in shapes:
             x = _random_tensor(shape, dtype, gen)
+            leaves.append(x)
             for cb in chunks:
                 k = ops.chunk_digests(x, cb)
                 p = ref.chunk_digests_plain(x, cb)
+                plain[cb].append(p)
                 cases += 1
                 mismatches += int(not torch.equal(k, p))
                 if k.shape[0] <= 2048:
                     host_checked += 1
                     mismatches += int(not np.array_equal(
                         k.cpu().numpy(), _host_digests(x, cb)))
-    # one leaf over 2**31 bytes: 64-bit offsets, > 65,535 chunks on grid x
+
+    cap = chunk_digest.CAPACITY
+    bad_launches = []
+
+    def grouped(xs, cb, want) -> None:
+        """One grouped call: exact against ``want``, ceil(n / capacity) launches."""
+        nonlocal cases, mismatches
+        before = chunk_digest.chunk_digests.launches
+        table, b = ops.chunk_digest_table(xs, cb)
+        launches = chunk_digest.chunk_digests.launches - before
+        busy = sum(1 for x in xs if x.numel())
+        if launches != -(-busy // cap):
+            bad_launches.append((len(xs), cb, launches))
+        cases += 1
+        mismatches += sum(int(not torch.equal(table[b[k] : b[k + 1]], w))
+                          for k, w in enumerate(want))
+
+    # every dtype x shape case in one call: empty and 0-d leaves mid-group
+    for cb in chunks:
+        grouped(leaves, cb, plain[cb])
+    # starts off the 16-byte grid: views at word offsets 1, 2, 3, and chunk
+    # sizes that are multiples of 4 but not of 16
+    words = _random_tensor(((1 << 16) + 5,), torch.int32, gen)
+    odd = [words[o:] for o in (1, 2, 3)] + [words[o : o + 1001] for o in (1, 2, 3)]
+    odd += [x for x in leaves if 0 < x.numel() * x.element_size() <= 1 << 20]
+    for cb in (4, 12, 20, 1028, 64, 4096):
+        grouped(odd, cb, [ref.chunk_digests_plain(x, cb) for x in odd])
+    # more leaves than one launch takes: three launches
+    many = [_random_tensor((int(n),), torch.uint8, gen)
+            for n in torch.randint(0, 5000, (2 * cap + 5,), generator=gen,
+                                   device="cuda").tolist()]
+    grouped(many, 4096, [ref.chunk_digests_plain(x, 4096) for x in many])
+    # one leaf over 2**31 bytes: 64-bit offsets, > 65,535 chunks; alone
+    # and inside a group
     big = _random_tensor(((1 << 31) + 4099,), torch.int8, gen)
+    group = [odd[0], big, odd[4]]
     for cb in (64, 4 << 20):
         k = ops.chunk_digests(big, cb)
         p = ref.chunk_digests_plain(big, cb)
         cases += 1
         mismatches += int(not torch.equal(k, p))
-    del big, k, p
+        del k
+        grouped(group, cb, [ref.chunk_digests_plain(group[0], cb), p,
+                            ref.chunk_digests_plain(group[2], cb)])
+    del big, group, p, leaves, plain, odd, many
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"[sweep] cases={cases} host_checked={host_checked} "
-          f"mismatches={mismatches} (tolerance: exact, integer digests)",
-          flush=True)
+          f"mismatches={mismatches} wrong_launch_counts={bad_launches} "
+          f"(tolerance: exact, integer digests; {cap} leaves per launch)", flush=True)
     if mismatches:
         raise SystemExit(f"chunk_digest: {mismatches} mismatches")
+    if bad_launches:
+        raise SystemExit(f"chunk_digest: grouped calls with the wrong launch count "
+                         f"(leaves, chunk_bytes, launches): {bad_launches}")
 
 
 def _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen):
@@ -318,31 +369,58 @@ def _counts() -> dict:
 
 
 def phase_main_path(store: str, codec: str):
+    from repro_torch.core.shadow import ShadowStateManager
+    from repro_torch.kernels import chunk_digest
     from repro_torch.launch import train
+    from repro_torch.utils.tree import flatten_with_paths
 
     argv = ["--arch", ARCH, "--steps", str(STEPS), "--batch", str(BATCH),
             "--seq", str(SEQ), "--lr", str(LR), "--ckpt-every", "2", "--backend", "fork",
             "--codec", codec, "--log-every", "1", "--ckpt-dir", store]
-    _zero_counts()
-    t0 = time.perf_counter()
-    out = train.train(argv)
-    wall = time.perf_counter() - t0
-    counts = _counts()
+    # each shadow sync's kernel launches, beside the tensor leaves it saw
+    syncs = []
+    sync = ShadowStateManager.sync
+
+    def counted_sync(self, state):
+        before = chunk_digest.chunk_digests.launches
+        stats = sync(self, state)
+        tensors = sum(isinstance(leaf, torch.Tensor)
+                      for leaf in flatten_with_paths(state)[0].values())
+        syncs.append((chunk_digest.chunk_digests.launches - before, tensors))
+        return stats
+
+    ShadowStateManager.sync = counted_sync
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = train.train(argv)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        ShadowStateManager.sync = sync
     launches = counts["chunk_digest"]
     for r in out["results"]:
         print(f"[ckpt] step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
               f"persist_ms={r.persist_s * 1e3:.1f} digest_ms="
               f"{r.digest_us / 1e3:.1f} synced={r.chunks_synced} "
               f"written={r.chunks_written} reused={r.chunks_reused}")
+    digesting = [(n, leaves) for n, leaves in syncs if n]
+    allowed = {leaves: -(-leaves // chunk_digest.CAPACITY) for _, leaves in syncs}
     m = out["metrics"]
     print(f"[main] arch={ARCH} codec={codec} steps={out['final_step']} wall_s={wall:.1f} "
           f"loss={m['loss']:.4f} grad_norm={m['grad_norm']:.4f} "
-          f"chunk_digest_launches={launches} "
+          f"chunk_digest_launches={launches} syncs={len(syncs)} "
+          f"digesting_syncs={len(digesting)} launches_per_digesting_sync="
+          f"{[n for n, _ in digesting]} (at most {sorted(set(allowed.values()))} for "
+          f"{sorted(allowed)} tensor leaves) "
           f"flash_attention_launches={counts['flash_attention']}", flush=True)
     if out["final_step"] != STEPS or not all(map(math.isfinite, m.values())):
         raise SystemExit(f"main path did not finish cleanly: {out['final_step']} {m}")
     if launches <= 0:
         raise SystemExit("main path never launched the chunk_digest kernel")
+    if any(n > allowed[leaves] for n, leaves in digesting):
+        raise SystemExit(f"a sync made more chunk_digest launches than one per "
+                         f"{chunk_digest.CAPACITY} leaves: {digesting}")
     return out["state"], launches
 
 
@@ -487,19 +565,25 @@ def phase_timing(device_state, main_launches: int) -> dict:
     cb = 1 << 20  # the CLI's chunk size
     kernel = chunk_digest.chunk_digests
 
-    def kernel_pass():
+    def grouped_pass():  # as a sync makes it: one table, one grouped call
+        return chunk_digest.chunk_digest_table(leaves, cb)[0]
+
+    def per_leaf_pass():  # the same kernel, one call per leaf
         return [kernel(t, cb) for t in leaves]
 
     def plain_pass():
         return [ref.chunk_digests_plain(t, cb) for t in leaves]
 
     before = kernel.launches
-    got = kernel_pass()  # warm-up, and the comparison
+    got = grouped_pass()  # warm-up, and the comparison
     per_sync = kernel.launches - before
-    want = plain_pass()
-    err = max(int((a - b).abs().max()) for a, b in zip(got, want))
+    want = torch.cat(plain_pass())
+    err = max(int((got - want).abs().max()),
+              int((torch.cat(per_leaf_pass()) - want).abs().max()))
     del got, want
-    ms = _time_ms(kernel_pass, 20)
+    # the state is ~100x the 50 MB L2: back-to-back passes read cold memory
+    ms = _time_ms(grouped_pass, 20)
+    per_leaf_ms = _time_ms(per_leaf_pass, 20)
     plain_ms = _time_ms(plain_pass, 2)
     nbytes = sum(t.numel() * t.element_size() for t in leaves)
     words = sum(-(-t.numel() * t.element_size() // 4) for t in leaves)
@@ -516,12 +600,14 @@ def phase_timing(device_state, main_launches: int) -> dict:
         "library_ms": None,
     }
     print(f"[timing] leaves={len(leaves)} bytes={nbytes} launches_per_sync="
-          f"{per_sync} kernel_ms={ms:.3f} plain_ms={plain_ms:.1f} "
-          f"bound_ms={row['bound_ms']:.3f} GB/s={nbytes / ms / 1e6:.0f} "
-          f"max_abs_err={err} (tolerance: exact)",
-          flush=True)
+          f"{per_sync} kernel_ms={ms:.3f} per_leaf_ms={per_leaf_ms:.3f} "
+          f"plain_ms={plain_ms:.1f} bound_ms={row['bound_ms']:.3f} "
+          f"GB/s={nbytes / ms / 1e6:.0f} bound/kernel={row['bound_ms'] / ms:.3f} "
+          f"max_abs_err={err} (tolerance: exact)", flush=True)
     if err:
         raise SystemExit(f"chunk_digest disagrees with plain at main-path shapes: {err}")
+    if per_sync != -(-len(leaves) // chunk_digest.CAPACITY):
+        raise SystemExit(f"the grouped digest took {per_sync} launches")
     return row
 
 

@@ -17,10 +17,11 @@ point":
                                         comes with the device-proxy slice)
 
 The digest compare runs *on device* (the hand-written CUDA ``chunk_digest``
-kernel for CUDA tensors, its plain PyTorch version for CPU tensors): only
-the (n_chunks, 2) digest table crosses to the host before any data does, so
-clean chunks cost nothing to skip — the same economy CRUM gets from not
-faulting untouched pages.
+kernel for CUDA tensors, its plain PyTorch version for CPU tensors), over
+all dirty tensor leaves in one grouped call per device: only one digest
+table per device crosses to the host before any data does, so clean chunks
+cost nothing to skip — the same economy CRUM gets from not faulting
+untouched pages.
 
 Leaves are tensors (one shard each: the whole leaf) or host values (numpy
 arrays and scalars). Byte views of tensors come from
@@ -260,20 +261,31 @@ class ShadowStateManager:
 
         Only chunks whose device digest differs from the shadow digest are
         materialized on host — CRUM's read-fault economy at chunk scale.
+        Every tensor stream that needs digests is digested first, in one
+        grouped call per device whose table crosses to the host in one copy;
+        then each stream compares and fetches. A leaf that appears after the
+        first sync re-registers the state before any stream syncs, so every
+        stream is fetched whole (the reference re-registers partway and
+        drops the shadow of the leaves before the new one).
         """
         tr = obs_trace.get()
         t0 = time.perf_counter() if tr is not None else 0.0
-        if not self._registered:
-            self.register(state)
         flat, _ = flatten_with_paths(state)
+        # per leaf, its shards as ((path, ordinal), data)
+        leaves = [
+            [((path, ordinal), data)
+             for ordinal, _start, _stop, data in _owned_host_shards(leaf)]
+            for path, leaf in flat.items()
+        ]
+        shards = [shard for leaf in leaves for shard in leaf]
+        if not self._registered or any(key not in self._streams for key, _ in shards):
+            # first sync, or a new leaf appeared: register (all chunks dirty)
+            self.register(state)
         stats = SyncStats()
-        for path, leaf in flat.items():
-            for ordinal, start, stop, data in _owned_host_shards(leaf):
-                stream = self._streams.get((path, ordinal))
-                if stream is None:  # new leaf appeared: register on the fly
-                    self.register(state)
-                    stream = self._streams[(path, ordinal)]
-                stats.merge(self._sync_stream(stream, data))
+        digests = self._tensor_digests(shards, stats)
+        for leaf in leaves:
+            for key, data in leaf:
+                stats.merge(self._sync_stream(self._streams[key], data, digests.get(key)))
             stats.leaves += 1
         if tr is not None:
             tr.complete("shadow.sync", t0,
@@ -281,7 +293,40 @@ class ShadowStateManager:
                         bytes_fetched=stats.bytes_fetched)
         return stats
 
-    def _sync_stream(self, stream: _ShardStream, data: Any) -> SyncStats:
+    def _tensor_digests(
+        self, shards: list[tuple[tuple[str, int], Any]], stats: SyncStats
+    ) -> dict[tuple[str, int], list[int]]:
+        """Device digests of every tensor stream this sync compares (one
+        with a DEVICE_DIRTY chunk; on a first sync only when its digests are
+        not deferred): one grouped call per device (the CUDA kernel on the
+        card, its plain version on the CPU), timed once into
+        ``stats.digest_us``."""
+        wanted = []
+        for key, data in shards:
+            stream = self._streams[key]
+            if not isinstance(data, torch.Tensor):
+                continue
+            if stream.buffer is None:
+                if not self.defer_first_digests:
+                    wanted.append((key, data))
+            elif ChunkState.DEVICE_DIRTY in stream.states:
+                wanted.append((key, data))
+        if not wanted:
+            return {}
+        from repro_torch.kernels.ops import host_chunk_digests
+
+        t0 = time.perf_counter()
+        with self.timings.measure("shadow/digest"):
+            digests = host_chunk_digests([d for _, d in wanted], self.chunk_bytes)
+        stats.digest_us += (time.perf_counter() - t0) * 1e6
+        return {key: d for (key, _), d in zip(wanted, digests)}
+
+    def _sync_stream(
+        self, stream: _ShardStream, data: Any, dev_digests: list[int] | None
+    ) -> SyncStats:
+        """Sync one stream; ``dev_digests`` are its tensor's device digests
+        from this sync's grouped call (None for a host leaf, which is hashed
+        here with ``chunk_digest_np``)."""
         stats = SyncStats(
             chunks_total=stream.n_chunks, bytes_total=stream.nbytes
         )
@@ -301,11 +346,10 @@ class ShadowStateManager:
             stats.fetch_us += (time.perf_counter() - t0) * 1e6
             if self.defer_first_digests:
                 stream.digests = [-2] * stream.n_chunks  # pending backfill
+            elif dev_digests is not None:
+                stream.digests = list(dev_digests)
             else:
-                t0 = time.perf_counter()
-                with self.timings.measure("shadow/digest"):
-                    stream.digests = self._device_digests(data, stream)
-                stats.digest_us += (time.perf_counter() - t0) * 1e6
+                stream.digests = self._host_digests(data, stream, stats)
             return stats
         dirty = [
             i for i, st in enumerate(stream.states)
@@ -313,16 +357,14 @@ class ShadowStateManager:
         ]
         if not dirty:
             return stats
-
-        t0 = time.perf_counter()
-        with self.timings.measure("shadow/digest"):
-            dev_digests = self._device_digests(data, stream)
-        stats.digest_us += (time.perf_counter() - t0) * 1e6
+        if dev_digests is None:
+            dev_digests = self._host_digests(data, stream, stats)
 
         changed = [i for i in dirty if dev_digests[i] != stream.digests[i]]
         # unchanged-but-marked chunks are clean after the compare
+        changed_set = set(changed)
         for i in dirty:
-            if i not in changed:
+            if i not in changed_set:
                 stream.states[i] = ChunkState.CLEAN
 
         if not changed:
@@ -375,21 +417,19 @@ class ShadowStateManager:
 
         return fetch
 
-    def _device_digests(self, data: Any, stream: _ShardStream) -> list[int]:
-        """Per-chunk u64 digests: a tensor is digested where it lives (the
-        CUDA kernel on the card, its plain version on the CPU); only host
-        leaves (numpy arrays, scalars) are hashed with ``chunk_digest_np``."""
-        if isinstance(data, torch.Tensor):
-            from repro_torch.kernels.ops import chunk_digests, digests_to_u64
-
-            d = digests_to_u64(chunk_digests(data, self.chunk_bytes))
-            return [int(x) for x in d]
-        host = leaf_bytes(data)
-        cb = self.chunk_bytes
-        return [
-            chunk_digest_np(host[i * cb : min(stream.nbytes, (i + 1) * cb)])
-            for i in range(stream.n_chunks)
-        ]
+    def _host_digests(self, data: Any, stream: _ShardStream, stats: SyncStats) -> list[int]:
+        """Per-chunk u64 digests of a host leaf (numpy array or scalar) with
+        ``chunk_digest_np``, timed into ``stats.digest_us``."""
+        t0 = time.perf_counter()
+        with self.timings.measure("shadow/digest"):
+            host = leaf_bytes(data)
+            cb = self.chunk_bytes
+            digests = [
+                chunk_digest_np(host[i * cb : min(stream.nbytes, (i + 1) * cb)])
+                for i in range(stream.n_chunks)
+            ]
+        stats.digest_us += (time.perf_counter() - t0) * 1e6
+        return digests
 
     # -- upload (the write-back path: SendDataToRealPages) ---------------------
     def upload(self, state: Any):

@@ -6,7 +6,7 @@ call raises — it never falls back to the plain version or to the host.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +32,29 @@ def chunk_digests(x: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
     raise ValueError(f"no chunk_digest kernel for device {x.device}")
 
 
+def chunk_digest_table(xs: Sequence[torch.Tensor],
+                       chunk_bytes: int) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """Digests of many tensors of one device in one ``(rows, 2)`` table.
+
+    Returns ``(table, bounds)``; tensor k's rows are ``bounds[k]:bounds[k + 1]``.
+    On the CPU each tensor goes through the plain version; on the card all
+    of them go through one grouped kernel call (one launch per
+    ``chunk_digest.CAPACITY`` non-empty tensors).
+    """
+    devices = {x.device for x in xs}
+    if len(devices) > 1:
+        raise ValueError(f"chunk_digest_table needs tensors on one device, got {devices}")
+    device = devices.pop() if devices else torch.device("cpu")
+    if device.type == "cpu":
+        parts = [_ref.chunk_digests_plain(x, chunk_bytes) for x in xs]
+        bounds = np.cumsum([0] + [p.shape[0] for p in parts]).tolist()
+        table = torch.cat(parts) if parts else torch.zeros((0, 2), dtype=torch.int64)
+        return table, tuple(bounds)
+    if device.type == "cuda":
+        return _kernel.chunk_digest_table([x.contiguous() for x in xs], chunk_bytes)
+    raise ValueError(f"no chunk_digest kernel for device {device}")
+
+
 def digests_to_u64(d: torch.Tensor | np.ndarray) -> np.ndarray:
     """(n, 2) ``[hi, lo]`` -> (n,) u64 digests on the host."""
     if isinstance(d, torch.Tensor):
@@ -40,19 +63,36 @@ def digests_to_u64(d: torch.Tensor | np.ndarray) -> np.ndarray:
     return (d[:, 0] << np.uint64(32)) | d[:, 1]
 
 
+def host_chunk_digests(xs: Sequence[torch.Tensor], chunk_bytes: int) -> list[list[int]]:
+    """Per-chunk u64 digests of many tensors, on the host, in their order:
+    one grouped call for each device among them, whose table crosses to the
+    host in one copy (one call and one copy when all share a device)."""
+    by_device: dict[torch.device, list[int]] = {}
+    for k, x in enumerate(xs):
+        by_device.setdefault(x.device, []).append(k)
+    out: list[list[int]] = [[] for _ in xs]
+    for ks in by_device.values():
+        table, b = chunk_digest_table([xs[k] for k in ks], chunk_bytes)
+        d = digests_to_u64(table).tolist()
+        for j, k in enumerate(ks):
+            out[k] = d[b[j] : b[j + 1]]
+    return out
+
+
 def tree_chunk_digests(state: Any, chunk_bytes: int) -> dict[str, list[int]]:
     """Per-chunk u64 digests of every leaf: {path: [digest, ...]}.
 
-    Tensor leaves go through :func:`chunk_digests` (the kernel on the card,
-    the plain version on the CPU); host leaves hash with the bit-identical
-    numpy reference.
+    All tensor leaves go through one grouped call (the kernel on the card,
+    the plain version on the CPU) and one copy of its table to the host;
+    host leaves hash with the bit-identical numpy reference.
     """
     flat, _ = flatten_with_paths(state)
+    tensors = {p: leaf for p, leaf in flat.items() if isinstance(leaf, torch.Tensor)}
+    digests = dict(zip(tensors, host_chunk_digests(list(tensors.values()), chunk_bytes)))
     out: dict[str, list[int]] = {}
     for path, leaf in flat.items():
-        if isinstance(leaf, torch.Tensor):
-            d = digests_to_u64(chunk_digests(leaf, chunk_bytes))
-            out[path] = [int(x) for x in d]
+        if path in digests:
+            out[path] = digests[path]
             continue
         raw = leaf_bytes(leaf)
         cb = int(chunk_bytes)

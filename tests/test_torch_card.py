@@ -55,6 +55,50 @@ def test_kernel_matches_plain(cuda, dtype):
             assert torch.equal(k, ref.chunk_digests_plain(x, cb))
 
 
+@pytest.mark.parametrize("cb", [4, 12, 20, 1028, 4096])
+def test_grouped_kernel_matches_plain(cuda, cb):
+    """Mixed dtypes and sizes, empty and 0-d leaves, views whose starts are
+    off the 16-byte grid, and more leaves than one launch takes."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    words = torch.randint(-2**31, 2**31 - 1, (70_001,), dtype=torch.int32,
+                          device=cuda, generator=g)
+    leaves = [words[1:], words[:0], words[2:999], words[3:7], words[5].reshape(()),
+              words.view(torch.bfloat16)[2:2002], words.view(torch.int8)[4:40_003]]
+    sizes = torch.randint(0, 3000, (2 * chunk_digest.CAPACITY,), generator=g,
+                          device=cuda).tolist()
+    leaves += [words.view(torch.uint8)[4 * k : 4 * k + n] for k, n in enumerate(sizes)]
+    busy = sum(1 for x in leaves if x.numel())
+    before = chunk_digest.chunk_digests.launches
+    table, b = ops.chunk_digest_table(leaves, cb)
+    assert chunk_digest.chunk_digests.launches - before == -(-busy // chunk_digest.CAPACITY)
+    for k, x in enumerate(leaves):
+        assert torch.equal(table[b[k] : b[k + 1]], ref.chunk_digests_plain(x, cb))
+
+
+def test_shadow_sync_over_mixed_devices(cuda):
+    """A state may hold a CPU tensor (an RNG state) beside the card's
+    leaves: each device gets its own grouped call, and the shadow equals a
+    sync of the same bytes held all on the CPU."""
+    from repro_torch.core.shadow import ShadowStateManager
+
+    g = torch.Generator().manual_seed(2)
+    cpu = {"w": torch.randn(3000, generator=g), "rng": torch.get_rng_state(),
+           "b": torch.randn(77, generator=g).to(torch.bfloat16)}
+    mixed = {"w": cpu["w"].to(cuda), "rng": cpu["rng"], "b": cpu["b"].to(cuda)}
+    assert ops.host_chunk_digests(list(mixed.values()), 512) == \
+        ops.host_chunk_digests(list(cpu.values()), 512)
+    before = chunk_digest.chunk_digests.launches
+    on_card, on_host = ShadowStateManager(chunk_bytes=512), ShadowStateManager(chunk_bytes=512)
+    on_card.sync(mixed)
+    on_host.sync(cpu)
+    assert chunk_digest.chunk_digests.launches - before == 1
+    want, got = on_host.snapshot(), on_card.snapshot()
+    assert want.keys() == got.keys()
+    for key in want:
+        assert np.array_equal(got[key]["data"], want[key]["data"]), key
+        assert got[key]["digests"] == want[key]["digests"], key
+
+
 def test_kernel_refuses_what_it_cannot_read(cuda):
     x = torch.zeros(64, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
