@@ -52,7 +52,33 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    attention, ``scaled_dot_product_attention``'s (the kernel's ratio to it
    and its share of the bound on the ``[timing] flash`` line), printed as
    one ``{"kernels": [...]}`` JSON line;
-7. the last line: ``{"ok": true, "device": {...}}``.
+7. the proxy path (``[proxy]``): qwen2-0.5b at full width and depth,
+   batch 4, seq 512, 6 steps, a checkpoint every 2 steps, fork backend,
+   codec ``none``, 1 MiB chunks, the segment transport and fused digests,
+   trained by ``CheckpointedTrainer(device_runner="proxy")``: a child
+   Python process that never creates a CUDA context drives a proxy process
+   that owns the card. The killed run SIGKILLs its proxy once, after step 5
+   is issued, and must recover by replaying the API log (one restart, at
+   least one replayed step), writing images at steps 2, 4 and 6; the
+   restored run resumes from the step-4 image through
+   ``RestoreManager.restore_into_proxy`` into a fresh proxy and runs steps
+   5 and 6. This process builds the same program on the card from the same
+   host-built init and runs 6 steps inline: the killed run's step-6 image,
+   the restored run's step-6 state and the inline state must be equal bit
+   for bit. Every SYNCED after a run's first must carry ``prehashed_chunks``
+   equal to the state's 4,739 chunks and one ``chunk_digest`` launch per
+   step of its window (the fused digest, in the proxy), and one ack's
+   per-chunk digest table must equal ``chunk_digest_np`` over the mirror.
+   This process watches each application from outside while it runs: the
+   application must never map ``/dev/nvidia-uvm`` (every CUDA context
+   does), and its proxy must be seen to. Its lines give the warm steps
+   one by one, proxied against inline (the first step of each process or
+   proxy incarnation left out), the
+   boundary stall, the proxy's phase times, checkpoint blocking and
+   persist, the recovery, ``restore_into_proxy``'s time and the segment
+   directory (``/dev/shm`` when it holds 1.25x the state, else a directory
+   under the temp dir), each beside the card's name and power limit;
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is available.
 """
@@ -97,7 +123,7 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7),
 # served-vs-forward difference apart must pick the same token
 
 
-def phase_card() -> None:
+def phase_card() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -115,6 +141,7 @@ def phase_card() -> None:
         libs = list(pool.map(lambda k: k.build(), (chunk_digest, flash_attention)))
     print(f"[build] {' '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return smi
 
 
 def _random_tensor(numel_shape, dtype, gen) -> torch.Tensor:
@@ -672,11 +699,340 @@ def phase_flash_timing(serve_launches: int) -> dict:
     return row
 
 
+PROXY_SPEC = {"name": "train_arch", "arch": ARCH, "smoke": False, "batch": BATCH,
+              "seq": SEQ, "lr": LR, "total_steps": STEPS, "device": "cuda"}
+PROXY_CHUNK = 1 << 20
+
+
+def proxy_child(cfg: dict) -> int:
+    """One proxied run, in a process that must never create a CUDA context:
+    ``killed`` trains steps 1-6 and SIGKILLs the proxy after step 5 is
+    issued; ``restored`` resumes from the killed run's step-4 image. The
+    program spec and chunk size come in ``cfg``. Writes what it saw to
+    ``cfg["out"]`` as JSON."""
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.checkpoint.chunking import chunk_digest_np
+    from repro_torch.core import CheckpointedTrainer, CheckpointPolicy, RestoreManager
+    from repro_torch.utils.tree import flatten_with_paths, leaf_bytes, tree_digest
+
+    tag = f"[proxy:{cfg['role']}]"
+    cb, n_steps = cfg["chunk"], cfg["spec"]["total_steps"]
+    trainer = CheckpointedTrainer(
+        None, store_root=cfg["store"],
+        policy=CheckpointPolicy(interval_steps=2, keep_last=2),
+        codec="none", chunk_bytes=cb, backend="fork",
+        device_runner="proxy", program=cfg["spec"],
+        proxy_opts={"fused_digests": True, "transport": "segment",
+                    "workdir": cfg["workdir"]},
+    )
+    runner = trainer.runner
+    syncs, oracle = [], {}
+    finish_sync = runner._finish_sync
+
+    def recording(epoch, msg, *, stall_us):
+        state, info = finish_sync(epoch, msg, stall_us=stall_us)
+        syncs.append({k: info.get(k) for k in ("step", "chunks_synced", "stall_us",
+                                               "phase_us")})
+        if cfg["role"] == "killed" and not oracle and info.get("chunk_digests"):
+            # the proxy's table (the CUDA kernel's digests of the step's
+            # output) against the host oracle over the acknowledged mirror
+            t0 = time.perf_counter()
+            bad = total = 0
+            for path, leaf in flatten_with_paths(state)[0].items():
+                raw, got = leaf_bytes(leaf), info["chunk_digests"][path]
+                want = [chunk_digest_np(raw[i : i + cb])
+                        for i in range(0, max(raw.nbytes, 1), cb)]
+                total += len(want)
+                bad += sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+            oracle.update(step=info["step"], chunks=total, mismatches=bad,
+                          seconds=time.perf_counter() - t0)
+        return state, info
+
+    runner._finish_sync = recording
+    step_calls = []  # the application's time per STEP call (pipelined)
+    send_step = runner.step
+
+    def timed_step(step: int) -> None:
+        t = time.perf_counter()
+        send_step(step)
+        step_calls.append((time.perf_counter() - t) * 1e3)
+
+    runner.step = timed_step
+    t0 = time.perf_counter()
+    if cfg["role"] == "killed":
+        state, start = trainer.resume_or(
+            lambda: {"device": None, "host": {"step": np.int64(0)}})
+        startup_s = time.perf_counter() - t0
+        killed = []
+
+        def stop() -> bool:  # after step 5 is issued: SIGKILL the proxy once
+            if int(state["host"]["step"]) == 5 and not killed:
+                killed.append(runner.kill())
+            return False
+
+        first, steps = 0, n_steps
+    else:
+        src = RestoreManager(ChunkStore(cfg["src_store"]))
+        state, manifest = src.restore_into_proxy(runner, step=4)
+        startup_s = time.perf_counter() - t0
+        start, killed, stop = int(manifest.step), [], None
+        first, steps = start, n_steps - start
+    segment_dir = runner.segments.workdir
+    what = "init on the host" if first == 0 else "restore_into_proxy: restore"
+    print(f"{tag} segment_dir={segment_dir} start_step={start} "
+          f"startup_s={startup_s:.1f} ({what} + spawn + upload)", flush=True)
+    t1 = time.perf_counter()
+    state = trainer.run(state, num_steps=steps, start_step=first, stop=stop)
+    run_s = time.perf_counter() - t1
+    results = trainer.finish()
+    out = {
+        "role": cfg["role"], "startup_s": startup_s, "run_s": run_s,
+        "segment_dir": segment_dir,
+        "final_step": int(state["host"]["step"]), "syncs": syncs, "oracle": oracle,
+        "killed_pid": killed[0] if killed else None, "restarts": runner.restarts,
+        "recoveries": [{k: r[k] for k in ("recovery_s", "replayed_steps", "resumed_from_step")}
+                       for r in runner.recoveries],
+        "app_step_ms": step_calls,
+        "ckpts": [{"step": r.step, "blocking_ms": r.blocking_s * 1e3,
+                   "persist_ms": r.persist_s * 1e3, "stall_ms": r.stall_us / 1e3,
+                   "synced": r.chunks_synced, "error": r.error} for r in results],
+        "digest": tree_digest(state["device"]),
+        "cuda_initialized": torch.cuda.is_initialized(),
+    }
+    with open(cfg["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _uvm_mapped(pid: int) -> bool:
+    """Whether a process maps ``/dev/nvidia-uvm``: every CUDA context does,
+    a process that only asked the CUDA driver for its device count does not
+    (False once the process is gone)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return any("/dev/nvidia-uvm" in line for line in f)
+    except OSError:
+        return False
+
+
+def _descendants(pid: int) -> list[int]:
+    children: dict[int, list[int]] = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(d))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def _card_contexts() -> int:
+    """The contexts ``nvidia-smi`` lists on the card, this process's included."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    return sum(bool(line.strip()) for line in r.stdout.splitlines())
+
+
+def _run_proxy_child(cfg: dict, timeout: float) -> dict:
+    """One proxied application, watched from this process while it runs:
+    every half second, whether the application maps ``/dev/nvidia-uvm``
+    (it must never), whether one of its descendants does (the proxy: this
+    shows the check sees a context), and every few seconds how many
+    contexts ``nvidia-smi`` lists (its PIDs are not this machine's, so the
+    count is printed, not matched to a process)."""
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--proxy-child", json.dumps(cfg)])
+    watch = {"samples": 0, "app_contexts": 0, "proxy_contexts": 0, "smi_max": 0}
+    deadline, smi_at = time.monotonic() + timeout, 0.0
+    try:
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise SystemExit(f"proxied {cfg['role']} run passed {timeout:.0f} s")
+            app = _uvm_mapped(proc.pid)
+            proxy = any(_uvm_mapped(k) for k in _descendants(proc.pid))
+            if proc.poll() is None:  # both reads saw the live application
+                watch["samples"] += 1
+                watch["app_contexts"] += app
+                watch["proxy_contexts"] += proxy
+            if time.monotonic() - smi_at > 2.0:
+                watch["smi_max"] = max(watch["smi_max"], _card_contexts())
+                smi_at = time.monotonic()
+            time.sleep(0.5)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise SystemExit(f"proxied {cfg['role']} run failed ({proc.returncode})")
+    with open(cfg["out"]) as f:
+        return dict(json.load(f), watch=watch)
+
+
+def phase_proxy(card: str) -> dict:
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.core import RestoreManager
+    from repro_torch.proxy import make_program
+    from repro_torch.utils.tree import flatten_with_paths, tree_digest, tree_equal
+
+    prog = make_program(PROXY_SPEC)
+    meta = flatten_with_paths(prog.meta_state())[0]
+    n_chunks = sum(-(-(t.numel() * t.element_size()) // PROXY_CHUNK) for t in meta.values())
+    nbytes = prog.state_nbytes()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-proxy-") as tmp:
+        shm = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
+        free = shm.f_bavail * shm.f_frsize if shm else 0
+        workdir = None
+        if free < 1.25 * nbytes:  # tmpfs is sparse: a full one is a SIGBUS
+            workdir = os.path.join(tmp, "segments")
+            os.makedirs(workdir)
+        print(f"[proxy] {card} state_bytes={nbytes} chunks={n_chunks} "
+              f"/dev/shm_free={free} -> segments in "
+              f"{'/dev/shm' if workdir is None else workdir}", flush=True)
+        base = {"workdir": workdir, "spec": PROXY_SPEC, "chunk": PROXY_CHUNK}
+        killed = _run_proxy_child(dict(base, role="killed", store=os.path.join(tmp, "a"),
+                                       out=os.path.join(tmp, "a.json")), 600)
+        restored = _run_proxy_child(dict(base, role="restored", store=os.path.join(tmp, "b"),
+                                         src_store=os.path.join(tmp, "a"),
+                                         out=os.path.join(tmp, "b.json")), 400)
+
+        # the same program on the card, from the same host-built init, inline
+        state = prog.on_restore(prog.init_state())
+        torch.cuda.synchronize()
+        step_ms = []
+        for step in range(1, STEPS + 1):
+            t0 = time.perf_counter()
+            state, metrics = prog.step(state, step)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        # the fused digest alone, as a proxied step ends with it
+        from repro_torch.kernels import ops
+
+        fused_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ops.tree_chunk_digests(state, PROXY_CHUNK)
+            fused_ms.append((time.perf_counter() - t0) * 1e3)
+        inline_digest = tree_digest(state)
+        same = {}
+        for name, root in (("killed_image", "a"), ("restored_image", "b")):
+            store = ChunkStore(os.path.join(tmp, root))
+            image, _ = RestoreManager(store).restore(step=6)
+            same[name] = tree_equal(image["device"], state)
+            del image
+        same["restored_state"] = restored["digest"] == inline_digest
+        same["killed_state"] = killed["digest"] == inline_digest
+        # committed images of the killed run: 2 was collected (keep_last=2)
+        kept = RestoreManager(ChunkStore(os.path.join(tmp, "a"))).available_steps()
+        del state
+        torch.cuda.empty_cache()
+
+    runs = (killed, restored)
+    for run in runs:
+        tag = f"[proxy:{run['role']}]"
+        for c in run["ckpts"]:
+            print(f"{tag} {card} ckpt step={c['step']} blocking_ms={c['blocking_ms']:.1f} "
+                  f"persist_ms={c['persist_ms']:.1f} stall_ms={c['stall_ms']:.1f} "
+                  f"synced={c['synced']}", flush=True)
+        for i, sy in enumerate(run["syncs"]):
+            ph = sy["phase_us"]
+            print(f"{tag} {card} synced step={sy['step']} chunks_synced={sy['chunks_synced']} "
+                  f"prehashed={ph.get('prehashed_chunks')} steps={ph.get('steps')} "
+                  f"digest_launches={ph.get('digest_launches')} "
+                  f"proxy_step_ms={ph.get('step', 0) / 1e3 / max(ph.get('steps', 0), 1):.1f} "
+                  f"phase_ms digest={ph.get('digest', 0) / 1e3:.1f} "
+                  f"fetch={ph.get('fetch', 0) / 1e3:.1f} sync={ph.get('sync', 0) / 1e3:.1f} "
+                  f"state_digest={ph.get('state_digest', 0) / 1e3:.1f} "
+                  f"stall_ms={sy['stall_us'] / 1e3:.1f}", flush=True)
+        for r in run["recoveries"]:
+            print(f"{tag} {card} recovery_s={r['recovery_s']:.2f} "
+                  f"replayed_steps={r['replayed_steps']} "
+                  f"resumed_from_step={r['resumed_from_step']}", flush=True)
+        w = run["watch"]
+        print(f"{tag} {card} startup_s={run['startup_s']:.1f} run_s={run['run_s']:.1f} "
+              f"restarts={run['restarts']} app_step_ms="
+              f"{' '.join(f'{t:.3f}' for t in run['app_step_ms'])} "
+              f"segment_dir={run['segment_dir']} "
+              f"cuda_initialized_in_app={run['cuda_initialized']} "
+              f"watched {w['samples']} times: app_with_context={w['app_contexts']} "
+              f"proxy_with_context={w['proxy_contexts']} "
+              f"nvidia_smi_contexts_max={w['smi_max']} (this process's included)", flush=True)
+    # warm steps only: the first step of a process (inline) or of a proxy
+    # incarnation carries its warm-up
+    proxied = [t / 1e3 for run in runs for sy in run["syncs"]
+               for t in sy["phase_us"]["step_each"][1 if sy["phase_us"]["warm_up"] else 0:]]
+    inline = step_ms[1:]
+
+    def summary(ts):
+        return (f"n={len(ts)} mean={sum(ts) / len(ts):.1f} min={min(ts):.1f} "
+                f"max={max(ts):.1f} [{' '.join(f'{t:.1f}' for t in ts)}]")
+
+    o = killed["oracle"]
+    print(f"[proxy] {card} warm step_ms inline {summary(inline)}; proxied (fused "
+          f"digest included) {summary(proxied)}; first steps inline={step_ms[0]:.1f} "
+          f"fused_digest_ms={' '.join(f'{t:.1f}' for t in fused_ms)} "
+          f"restore_into_proxy_s={restored['startup_s']:.1f} "
+          f"kernel_vs_host_oracle step={o.get('step')} chunks={o.get('chunks')} "
+          f"mismatches={o.get('mismatches')} ({o.get('seconds', 0):.1f}s on the host) "
+          f"bitwise={same}", flush=True)
+
+    launches = steps = 0
+    for run in runs:
+        w = run["watch"]
+        if run["cuda_initialized"] or w["app_contexts"]:
+            raise SystemExit(f"the {run['role']} application created a CUDA context: "
+                             f"{run['cuda_initialized']} {w}")
+        if not w["proxy_contexts"]:
+            raise SystemExit(f"{run['role']}: the watch never saw the proxy's context: {w}")
+        if any(c["error"] for c in run["ckpts"]):
+            raise SystemExit(f"{run['role']}: a checkpoint failed: {run['ckpts']}")
+        if run["final_step"] != STEPS:
+            raise SystemExit(f"{run['role']} stopped at step {run['final_step']}")
+        for sy in run["syncs"][1:]:
+            ph = sy["phase_us"]
+            if ph.get("prehashed_chunks") != n_chunks:
+                raise SystemExit(f"{run['role']}: SYNCED at step {sy['step']} prehashed "
+                                 f"{ph.get('prehashed_chunks')} of {n_chunks} chunks")
+        for sy in run["syncs"]:
+            ph = sy["phase_us"]
+            if ph.get("digest_launches") != ph.get("steps"):
+                raise SystemExit(f"{run['role']}: {ph.get('digest_launches')} digest "
+                                 f"launches for {ph.get('steps')} steps")
+            launches += ph.get("digest_launches", 0)
+            steps += ph.get("steps", 0)
+    if killed["restarts"] != 1 or not killed["recoveries"] or \
+            killed["recoveries"][0]["replayed_steps"] < 1 or killed["killed_pid"] is None:
+        raise SystemExit(f"killed run: restarts={killed['restarts']} "
+                         f"recoveries={killed['recoveries']}")
+    if [c["step"] for c in killed["ckpts"]] != [2, 4, 6] or kept != [4, 6]:
+        raise SystemExit(f"killed run wrote images at {[c['step'] for c in killed['ckpts']]}")
+    if restored["restarts"] != 0 or [c["step"] for c in restored["ckpts"]] != [6]:
+        raise SystemExit(f"restored run: {restored['restarts']} restarts, "
+                         f"images {[c['step'] for c in restored['ckpts']]}")
+    if not o or o["mismatches"] or o["chunks"] != n_chunks:
+        raise SystemExit(f"the proxy's chunk digests disagree with the host oracle: {o}")
+    if not all(same.values()):
+        raise SystemExit(f"proxied runs and the inline run differ: {same}")
+    if launches <= 0:
+        raise SystemExit("the proxy path never launched the chunk_digest kernel")
+    return {"launches": launches, "steps": steps}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--codec", default="none",
                     help="checkpoint codec of the main path (default: none)")
+    ap.add_argument("--proxy-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.proxy_child is not None:
+        return proxy_child(json.loads(args.proxy_child))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -685,7 +1041,7 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_card()
+    card = phase_card()
     phase_sweep()
     phase_flash_sweep()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
@@ -697,6 +1053,10 @@ def main() -> int:
     rows = [phase_timing(device_state, launches)]
     del device_state
     rows.append(phase_flash_timing(served["launches"]))
+    proxied = phase_proxy(card)
+    # the proxy path's own count: the fused digest's launches in the proxy
+    # processes, from their SYNCED frames (one per proxied step)
+    rows[0]["launches_proxy"] = proxied["launches"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

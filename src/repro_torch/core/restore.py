@@ -13,8 +13,9 @@ subsequent fault on the same region doubles the read-ahead. Serving
 restarts benefit: the params a server touches materialize on demand rather
 than stalling on the whole image.
 
-Not ported yet: ``restore_into_proxy`` (the proxy slice) and
-``restore_elastic`` (the cluster slice).
+Proxy restart (``restore_into_proxy``) re-creates the device state inside
+a device proxy instead of this process. Not ported yet: ``restore_elastic``
+(the cluster slice).
 """
 from __future__ import annotations
 
@@ -217,4 +218,37 @@ class RestoreManager:
                 for path, lrec in manifest.leaves.items()
             }
             state = skeleton_fill(manifest.skeleton, leaves)
+        return state, manifest
+
+    # -- proxy restart (paper §3.4: replay allocations, push data back) ---------
+    def restore_into_proxy(
+        self,
+        runner,
+        *,
+        step: int | None = None,
+        device_for: DeviceFor | None = None,
+        verify: bool = False,
+    ) -> tuple[Any, Manifest]:
+        """Restore a committed image and re-create device state in a proxy.
+
+        The paper's restart protocol for the proxy architecture: read the
+        image, then replay the logged allocations into a fresh proxy process
+        and transfer the data back through it. ``runner`` is a
+        ``repro_torch.proxy.ProxyRunner``; a fresh runner is started with
+        the restored device state (program + register + upload replayed
+        from scratch), a running one gets the state pushed over its data
+        plane. The leaves stay on the host (``device_for`` None): the
+        application that runs a proxy never touches the card. Returns
+        (state, manifest) exactly like :meth:`restore`.
+        """
+        state, manifest = self.restore(
+            step=step, device_for=device_for, verify=verify
+        )
+        with self.timings.measure("restore/proxy_push"):
+            if getattr(runner, "started", False):
+                runner.push(state["device"])
+            else:
+                runner.start(
+                    device_state=state["device"], base_step=int(manifest.step)
+                )
         return state, manifest

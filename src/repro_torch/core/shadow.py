@@ -13,15 +13,22 @@ point":
     read fault on a shadow page ->      sync(): device-side digest compare;
     ReadDataFromRealPage()              only mismatching chunks are fetched
     write fault -> MarkPageAsDirty()    host mutation marks HOST_DIRTY
-    CUDA call -> SendDataToRealPages()  upload(): not ported yet (it
-                                        comes with the device-proxy slice)
+    CUDA call -> SendDataToRealPages()  upload(): HOST_DIRTY chunks pushed
+                                        back to device (proxy replay path)
 
-The digest compare runs *on device* (the hand-written CUDA ``chunk_digest``
-kernel for CUDA tensors, its plain PyTorch version for CPU tensors), over
-all dirty tensor leaves in one grouped call per device: only one digest
-table per device crosses to the host before any data does, so clean chunks
-cost nothing to skip — the same economy CRUM gets from not faulting
-untouched pages.
+The digest compare runs *on device*: the hand-written CUDA
+``chunk_digest`` kernel digests all dirty card tensors in one grouped call
+per device, and only one digest table per device crosses to the host
+before any data does, so clean chunks cost nothing to skip — the same
+economy CRUM gets from not faulting untouched pages. CPU tensors
+(``ops.host_chunk_digests`` routes them) and host values are hashed with
+the host oracle ``chunk_digest_np`` over their bytes (the same bits).
+
+The device proxy (``repro_torch.proxy``) runs this manager in reverse: its
+shadow buffers ARE the data-plane table (``segment_factory``), ``sync``
+moves device -> table and ``upload`` table -> device, and a step program
+that digests its own output hands those digests to ``sync``
+(``device_digests``) so the boundary scans nothing.
 
 Leaves are tensors (one shard each: the whole leaf) or host values (numpy
 arrays and scalars). Byte views of tensors come from
@@ -35,7 +42,7 @@ import mmap
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -48,7 +55,7 @@ from repro_torch.checkpoint.chunking import (
 from repro_torch.obs import trace as obs_trace
 from repro_torch.utils.dtypes import byte_view, leaf_nbytes
 from repro_torch.utils.timing import Timings
-from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
+from repro_torch.utils.tree import flatten_with_paths, leaf_bytes, unflatten_from_paths
 
 
 class ChunkState(enum.Enum):
@@ -83,9 +90,13 @@ class SyncStats:
     # the streamed proxy transport forwards precisely these chunk payloads
     # to the application, so wire bytes track what actually changed
     changed: dict[tuple[str, int], list[int]] = field(default_factory=dict)
-    # phase breakdown: time spent hashing device chunks vs moving bytes
+    # phase breakdown: time spent hashing device chunks vs moving bytes —
+    # fused digesting (digests computed inside the step) drives digest_us
+    # to zero
     digest_us: float = 0.0
     fetch_us: float = 0.0
+    # chunks whose digest the step already supplied (no boundary scan)
+    chunks_prehashed: int = 0
 
     def merge(self, other: "SyncStats") -> None:
         self.chunks_total += other.chunks_total
@@ -96,6 +107,19 @@ class SyncStats:
         self.changed.update(other.changed)
         self.digest_us += other.digest_us
         self.fetch_us += other.fetch_us
+        self.chunks_prehashed += other.chunks_prehashed
+
+
+@dataclass
+class UploadStats:
+    """What ``upload()`` pushed host->device (paper: SendDataToRealPages)."""
+
+    chunks_uploaded: int = 0
+    bytes_uploaded: int = 0
+    leaves_touched: int = 0
+    # per-stream bytes pushed, keyed (path, shard_ordinal) — the proxy
+    # replay path reports these so recovery cost is attributable per leaf
+    per_stream: dict[tuple[str, int], int] = field(default_factory=dict)
 
 
 def _owned_host_shards(leaf: Any):
@@ -138,6 +162,7 @@ class ShadowStateManager:
         chunk_bytes: int = DEFAULT_CHUNK_BYTES,
         defer_first_digests: bool = False,
         shared_buffers: bool = False,
+        segment_factory: Callable[[tuple[str, int], int], np.ndarray] | None = None,
         timings: Timings | None = None,
     ):
         self.chunk_bytes = int(chunk_bytes)
@@ -152,6 +177,11 @@ class ShadowStateManager:
         # not mutate a buffer while a child is persisting it (the forked
         # checkpointer's busy-buffer discipline guarantees this).
         self.shared_buffers = shared_buffers
+        # Pluggable buffer allocation: (key, nbytes) -> u8 array. The device
+        # proxy passes a factory that maps file-backed MAP_SHARED segments,
+        # making the shadow buffers themselves the cross-process data plane
+        # (step inputs/outputs never pickle through the control pipe).
+        self.segment_factory = segment_factory
         self.timings = timings or Timings()
         self._streams: dict[tuple[str, int], _ShardStream] = {}
         self._mmaps: list[mmap.mmap] = []
@@ -167,7 +197,9 @@ class ShadowStateManager:
         # dropped instead of installing stale digests into fresh streams
         self.generation = 0
 
-    def _alloc_buffer(self, nbytes: int) -> np.ndarray:
+    def _alloc_buffer(self, nbytes: int, key: tuple[str, int] | None = None) -> np.ndarray:
+        if self.segment_factory is not None and key is not None:
+            return self.segment_factory(key, nbytes)
         if self.shared_buffers and nbytes > 0:
             mm = mmap.mmap(-1, nbytes)  # anonymous + MAP_SHARED on POSIX
             self._mmaps.append(mm)
@@ -255,8 +287,29 @@ class ShadowStateManager:
                 for st in s.states
             ]
 
+    def mark_host_write(self, path: str) -> None:
+        """Paper: write fault on a shadow page -> HOST_DIRTY."""
+        for (p, _), s in self._streams.items():
+            if p == path:
+                s.states = [ChunkState.HOST_DIRTY] * s.n_chunks
+
+    def mark_host_chunks(self, path: str, indices: list[int], *, ordinal: int = 0) -> None:
+        """Chunk-granular host-write marks (the proxy's delta-UPLOAD path):
+        only the listed chunks will be pushed by the next ``upload()``."""
+        s = self._streams.get((path, ordinal))
+        if s is None:
+            raise KeyError(f"no stream for {(path, ordinal)}")
+        for i in indices:
+            if 0 <= i < s.n_chunks:
+                s.states[i] = ChunkState.HOST_DIRTY
+
     # -- sync (the read-fault path, batched) ------------------------------------
-    def sync(self, state: Any) -> SyncStats:
+    def sync(
+        self,
+        state: Any,
+        *,
+        device_digests: dict[str, list[int]] | None = None,
+    ) -> SyncStats:
         """Bring the shadow up to date with the device; returns transfer stats.
 
         Only chunks whose device digest differs from the shadow digest are
@@ -267,6 +320,11 @@ class ShadowStateManager:
         first sync re-registers the state before any stream syncs, so every
         stream is fetched whole (the reference re-registers partway and
         drops the shadow of the leaves before the new one).
+
+        ``device_digests`` ({path: per-chunk u64 digests}) are digests the
+        step program already computed as a fused final pass: a listed path
+        of the right chunk count skips the digest pass and compares the
+        supplied digests against the shadow's (``chunks_prehashed``).
         """
         tr = obs_trace.get()
         t0 = time.perf_counter() if tr is not None else 0.0
@@ -281,26 +339,35 @@ class ShadowStateManager:
         if not self._registered or any(key not in self._streams for key, _ in shards):
             # first sync, or a new leaf appeared: register (all chunks dirty)
             self.register(state)
+        known = {}
+        for key, _data in shards:
+            k = (device_digests or {}).get(key[0])
+            if k is not None and len(k) == self._streams[key].n_chunks:
+                known[key] = [int(d) for d in k]
         stats = SyncStats()
-        digests = self._tensor_digests(shards, stats)
+        digests = self._tensor_digests(
+            [(key, data) for key, data in shards if key not in known], stats)
         for leaf in leaves:
             for key, data in leaf:
-                stats.merge(self._sync_stream(self._streams[key], data, digests.get(key)))
+                stats.merge(self._sync_stream(
+                    self._streams[key], data, digests.get(key), known.get(key)))
             stats.leaves += 1
         if tr is not None:
             tr.complete("shadow.sync", t0,
                         chunks_fetched=stats.chunks_fetched,
-                        bytes_fetched=stats.bytes_fetched)
+                        bytes_fetched=stats.bytes_fetched,
+                        prehashed=stats.chunks_prehashed)
         return stats
 
     def _tensor_digests(
         self, shards: list[tuple[tuple[str, int], Any]], stats: SyncStats
     ) -> dict[tuple[str, int], list[int]]:
-        """Device digests of every tensor stream this sync compares (one
-        with a DEVICE_DIRTY chunk; on a first sync only when its digests are
-        not deferred): one grouped call per device (the CUDA kernel on the
-        card, its plain version on the CPU), timed once into
-        ``stats.digest_us``."""
+        """Digests of every tensor stream this sync compares (one with a
+        DEVICE_DIRTY chunk; on a first sync only when its digests are not
+        deferred) through ``ops.host_chunk_digests`` — card tensors in one
+        grouped kernel call per device, CPU tensors with the numpy oracle —
+        timed once into ``stats.digest_us``. Host values hash in
+        :meth:`_sync_stream`."""
         wanted = []
         for key, data in shards:
             stream = self._streams[key]
@@ -322,11 +389,12 @@ class ShadowStateManager:
         return {key: d for (key, _), d in zip(wanted, digests)}
 
     def _sync_stream(
-        self, stream: _ShardStream, data: Any, dev_digests: list[int] | None
+        self, stream: _ShardStream, data: Any, dev_digests: list[int] | None,
+        known: list[int] | None = None,
     ) -> SyncStats:
         """Sync one stream; ``dev_digests`` are its tensor's device digests
         from this sync's grouped call (None for a host leaf, which is hashed
-        here with ``chunk_digest_np``)."""
+        here with ``chunk_digest_np``), ``known`` the step's fused digests."""
         stats = SyncStats(
             chunks_total=stream.n_chunks, bytes_total=stream.nbytes
         )
@@ -335,7 +403,9 @@ class ShadowStateManager:
             # digest pass is skipped when a persist phase will backfill it
             t0 = time.perf_counter()
             with self.timings.measure("shadow/fetch"):
-                stream.buffer = self._alloc_buffer(stream.nbytes)
+                stream.buffer = self._alloc_buffer(
+                    stream.nbytes, (stream.path, stream.shard_ordinal)
+                )
                 _copy_bytes(stream.buffer, data)
                 stream.states = [ChunkState.CLEAN] * stream.n_chunks
                 stats.chunks_fetched = stream.n_chunks
@@ -344,7 +414,10 @@ class ShadowStateManager:
                     range(stream.n_chunks)
                 )
             stats.fetch_us += (time.perf_counter() - t0) * 1e6
-            if self.defer_first_digests:
+            if known is not None:
+                stream.digests = list(known)
+                stats.chunks_prehashed += stream.n_chunks
+            elif self.defer_first_digests:
                 stream.digests = [-2] * stream.n_chunks  # pending backfill
             elif dev_digests is not None:
                 stream.digests = list(dev_digests)
@@ -357,10 +430,18 @@ class ShadowStateManager:
         ]
         if not dirty:
             return stats
-        if dev_digests is None:
-            dev_digests = self._host_digests(data, stream, stats)
-
-        changed = [i for i in dirty if dev_digests[i] != stream.digests[i]]
+        if known is not None:
+            # fused digests: the step already hashed the chunks, so the
+            # compare is bookkeeping (no digest time); shadow digests still
+            # unknown (a deferred first sync) count as changed
+            dev_digests = known
+            changed = [i for i in dirty
+                       if stream.digests[i] < 0 or known[i] != stream.digests[i]]
+            stats.chunks_prehashed += len(dirty)
+        else:
+            if dev_digests is None:
+                dev_digests = self._host_digests(data, stream, stats)
+            changed = [i for i in dirty if dev_digests[i] != stream.digests[i]]
         # unchanged-but-marked chunks are clean after the compare
         changed_set = set(changed)
         for i in dirty:
@@ -418,8 +499,8 @@ class ShadowStateManager:
         return fetch
 
     def _host_digests(self, data: Any, stream: _ShardStream, stats: SyncStats) -> list[int]:
-        """Per-chunk u64 digests of a host leaf (numpy array or scalar) with
-        ``chunk_digest_np``, timed into ``stats.digest_us``."""
+        """Per-chunk u64 digests of a host value (numpy array or scalar)
+        with ``chunk_digest_np``, timed into ``stats.digest_us``."""
         t0 = time.perf_counter()
         with self.timings.measure("shadow/digest"):
             host = leaf_bytes(data)
@@ -432,17 +513,113 @@ class ShadowStateManager:
         return digests
 
     # -- upload (the write-back path: SendDataToRealPages) ---------------------
-    def upload(self, state: Any):
-        """Push HOST_DIRTY chunks back to the device (paper:
-        ``SendDataToRealPages()``).
+    def upload(self, state: Any) -> tuple[Any, UploadStats]:
+        """Push HOST_DIRTY chunks back to the device; returns (state', stats).
 
-        Only the device proxy's replay path uses this, and the proxy is not
-        ported yet: it comes with the proxy slice of the port.
+        The paper's ``SendDataToRealPages()``: shadow content that the host
+        mutated is written back before the device computes again. Only
+        HOST_DIRTY chunk byte-ranges move; untouched chunks cost nothing.
+        A tensor leaf is patched in place, through a flat byte view; a leaf
+        whose every chunk is dirty is rebuilt from the shadow bytes instead,
+        never reading its stale device content, as the reference rebuilds
+        it. Host (numpy) leaves come back as patched copies. This is the
+        device proxy's replay data-push primitive: after a respawn the last
+        synced snapshot lives in the (shared-segment) shadow buffers and is
+        pushed into the fresh proxy's device state through this path.
         """
-        raise NotImplementedError(
-            "ShadowStateManager.upload waits for the device-proxy slice of "
-            "the PyTorch port"
-        )
+        if not self._registered:
+            raise RuntimeError("upload() before register()")
+        flat, treedef = flatten_with_paths(state)
+        stats = UploadStats()
+        new_flat = dict(flat)
+        pushed: list[tuple[_ShardStream, list[int], Any]] = []
+        for path, leaf in flat.items():
+            stream = self._streams.get((path, 0))
+            if stream is None:
+                continue
+            dirty = [i for i, st in enumerate(stream.states)
+                     if st is ChunkState.HOST_DIRTY]
+            if not dirty:
+                continue
+            stats.leaves_touched += 1
+            with self.timings.measure("shadow/upload"):
+                new_flat[path] = self._upload_leaf(stream, leaf, dirty, stats)
+            pushed.append((stream, dirty, new_flat[path]))
+        self._upload_digests(pushed)
+        return unflatten_from_paths(treedef, new_flat), stats
+
+    def _upload_leaf(
+        self, stream: _ShardStream, leaf: Any, dirty: list[int], stats: UploadStats
+    ) -> Any:
+        buf = self._stream_buffer(stream)
+        cb = self.chunk_bytes
+        full = len(dirty) == stream.n_chunks
+        if isinstance(leaf, torch.Tensor):
+            if full:
+                # everything dirty: rebuild straight from the shadow bytes
+                out = torch.empty(leaf.shape, dtype=leaf.dtype, device=leaf.device)
+                byte_view(out).copy_(torch.from_numpy(buf))
+            else:
+                out = leaf if leaf.is_contiguous() else leaf.contiguous()
+                target = byte_view(out)
+                for i in dirty:
+                    lo, hi = i * cb, min(stream.nbytes, (i + 1) * cb)
+                    target[lo:hi].copy_(torch.from_numpy(buf[lo:hi]))
+        else:
+            arr = np.asarray(leaf)
+            if full:
+                out = buf.view(arr.dtype).reshape(arr.shape).copy()
+            else:
+                out = np.array(arr)  # host copy, patched
+                target = out.reshape(-1).view(np.uint8)
+                for i in dirty:
+                    lo, hi = i * cb, min(stream.nbytes, (i + 1) * cb)
+                    target[lo:hi] = buf[lo:hi]
+        pushed = sum(min(stream.nbytes, (i + 1) * cb) - i * cb for i in dirty)
+        for i in dirty:
+            stream.states[i] = ChunkState.CLEAN
+        key = (stream.path, stream.shard_ordinal)
+        stats.chunks_uploaded += len(dirty)
+        stats.bytes_uploaded += pushed
+        stats.per_stream[key] = stats.per_stream.get(key, 0) + pushed
+        return out
+
+    def _upload_digests(self, pushed: list[tuple[_ShardStream, list[int], Any]]) -> None:
+        """Shadow digests of the chunks just uploaded: the uploaded tensors
+        through ``ops.host_chunk_digests`` (card tensors in one grouped
+        kernel call), host values from the shadow bytes (the same bits
+        either way)."""
+        tensors = [(s, d, leaf) for s, d, leaf in pushed
+                   if isinstance(leaf, torch.Tensor)]
+        if tensors:
+            from repro_torch.kernels.ops import host_chunk_digests
+
+            tables = host_chunk_digests([leaf for _, _, leaf in tensors],
+                                        self.chunk_bytes)
+            for (stream, dirty, _), table in zip(tensors, tables):
+                for i in dirty:
+                    stream.digests[i] = table[i]
+        cb = self.chunk_bytes
+        for stream, dirty, leaf in pushed:
+            if isinstance(leaf, torch.Tensor):
+                continue
+            for i in dirty:
+                lo, hi = i * cb, min(stream.nbytes, (i + 1) * cb)
+                stream.digests[i] = chunk_digest_np(stream.buffer[lo:hi])
+
+    def _stream_buffer(self, stream: _ShardStream) -> np.ndarray:
+        if stream.buffer is None:
+            # never synced: only meaningful when a segment factory can
+            # attach existing shared content (the proxy replay path)
+            if self.segment_factory is None:
+                raise RuntimeError(
+                    f"stream {(stream.path, stream.shard_ordinal)} has no "
+                    "shadow content to upload"
+                )
+            stream.buffer = self._alloc_buffer(
+                stream.nbytes, (stream.path, stream.shard_ordinal)
+            )
+        return stream.buffer
 
     # -- snapshot access ----------------------------------------------------------
     def snapshot(self) -> dict[tuple[str, int], dict]:
@@ -463,6 +640,22 @@ class ShadowStateManager:
                 "digests": list(s.digests),
             }
         return out
+
+    def digest_table(self) -> dict[str, list[int]] | None:
+        """Full-state per-chunk digest view: {path: [u64 digests]}.
+
+        Only meaningful when every stream is a whole leaf (ordinal 0 — the
+        proxy-service registration shape) and every digest is known:
+        returns None if any digest still holds a negative sentinel, so
+        callers never ship a partial table (divergence provenance rides
+        the proxy's SYNCED ack).
+        """
+        out: dict[str, list[int]] = {}
+        for (path, ordinal), s in self._streams.items():
+            if ordinal != 0 or any(d < 0 for d in s.digests):
+                return None
+            out[path] = [int(d) for d in s.digests]
+        return out or None
 
     def set_digests(
         self,

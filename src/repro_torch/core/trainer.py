@@ -14,10 +14,17 @@ State layout (a plain dict tree; everything checkpointable):
     {"device": {...tensors...},            # params / opt state / step
      "host":   {"step": np.int64, "data": {...iterator state...}}}
 
-Only the inline device runner is ported: the step runs in this process.
-The proxy runner (``device_runner="proxy"``) and managed memory
-(``device_capacity_bytes``) come with later slices of the port and raise
-here.
+Device-runner axis (``device_runner=``): ``inline`` executes the step
+function in-process (the default, above); ``proxy`` is the paper's actual
+architecture — compute runs in a separate restartable proxy process
+(``repro_torch.proxy.ProxyRunner``) built from a replayable ``program``
+spec, the app holds only the host mirror and never touches the card, and
+``state["device"]`` is refreshed from the proxy at every sync/checkpoint
+boundary. A killed proxy is respawned and its API log replayed
+transparently mid-``run()``.
+
+Managed memory (``device_capacity_bytes``) comes with a later slice of the
+port and raises here.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.utils.timing import Timings
 
-DEVICE_RUNNERS = ("inline",)
+DEVICE_RUNNERS = ("inline", "proxy")
 
 
 class CheckpointedTrainer:
@@ -52,13 +59,14 @@ class CheckpointedTrainer:
         host: int = 0,
         backend: str = "thread",
         device_runner: str = "inline",
+        program: dict | None = None,
+        proxy_opts: dict | None = None,
         device_capacity_bytes: int | None = None,
         timings: Timings | None = None,
     ):
         if device_runner not in DEVICE_RUNNERS:
-            raise NotImplementedError(
-                f"device_runner {device_runner!r} is not ported to PyTorch "
-                f"yet; have {DEVICE_RUNNERS}"
+            raise ValueError(
+                f"unknown device_runner {device_runner!r}; have {DEVICE_RUNNERS}"
             )
         if device_capacity_bytes:
             raise NotImplementedError(
@@ -81,6 +89,15 @@ class CheckpointedTrainer:
         )
         self.restorer = RestoreManager(self.store, timings=self.timings)
         self.results: list[CheckpointResult] = []
+        self.runner = None
+        if device_runner == "proxy":
+            if program is None:
+                raise ValueError("device_runner='proxy' needs a program spec")
+            from repro_torch.proxy import ProxyRunner
+
+            self.runner = ProxyRunner(
+                program, chunk_bytes=chunk_bytes, **dict(proxy_opts or {})
+            )
 
     # -- restart ----------------------------------------------------------------
     def resume_or(
@@ -93,16 +110,29 @@ class CheckpointedTrainer:
         """Restore the newest committed state or build a fresh one.
 
         ``device_for(path, shape)`` names the device each restored leaf goes
-        to (None keeps it on the host). Returns (state, start_step).
+        to (None keeps it on the host). In proxy mode the (restored or
+        fresh) device state is pushed into a freshly-started proxy instead —
+        the paper's restart protocol of replaying allocations and
+        transferring data back through the proxy — and ``state["device"]``
+        is its host mirror. Returns (state, start_step).
         """
         steps = self.restorer.available_steps()
         if not steps:
             state = init_fn()
             start = int(np.asarray(_get(state, "host", "step", default=0)))
+            if self.runner is not None:
+                state["device"] = self.runner.start(
+                    device_state=state.get("device"), base_step=start
+                )
             return state, start
-        state, _manifest = self.restorer.restore(
-            step=steps[-1], device_for=device_for, verify=verify
-        )
+        if self.runner is not None:
+            state, _manifest = self.restorer.restore_into_proxy(
+                self.runner, step=steps[-1], device_for=device_for, verify=verify
+            )
+        else:
+            state, _manifest = self.restorer.restore(
+                step=steps[-1], device_for=device_for, verify=verify
+            )
         start = int(np.asarray(state["host"]["step"]))
         return state, start
 
@@ -120,6 +150,18 @@ class CheckpointedTrainer:
         """``stop`` (checked after each step's checkpoint decision) ends
         the loop early — the preemption hook for callers that delegate
         their loop here instead of hand-rolling one."""
+        if self.runner is not None:
+            if batches is not None:
+                raise ValueError(
+                    "device_runner='proxy' derives batches inside the step "
+                    "program (deterministic in the step number — that is "
+                    "what makes replay bit-identical); a batches iterator "
+                    "here would be silently ignored"
+                )
+            return self._run_proxied(
+                state, num_steps=num_steps, start_step=start_step,
+                on_metrics=on_metrics, stop=stop,
+            )
         if batches is None:
             raise ValueError("inline device runner needs a batches iterator")
         step = start_step
@@ -140,6 +182,94 @@ class CheckpointedTrainer:
             if stop is not None and stop():
                 break
         return state
+
+    def _run_proxied(
+        self,
+        state: Any,
+        *,
+        num_steps: int,
+        start_step: int,
+        on_metrics: Callable[[int, Any], None] | None,
+        stop: Callable[[], bool] | None = None,
+    ) -> Any:
+        """Proxy mode: forward pipelined STEP calls; checkpoint boundaries
+        issue a pipelined epoch SYNC and keep stepping — the SYNCED ack is
+        polled opportunistically each iteration and only *collected*
+        (blocking) when the next boundary needs the data plane, so the
+        boundary stall overlaps with the following steps' compute. Batches
+        are program-internal (deterministic in the step number) — that
+        determinism is what makes kill-replay bit-identical."""
+        step = start_step
+        synced_at = start_step - 1
+        pending: tuple[int, int] | None = None  # (epoch, boundary step)
+        tr = obs_trace.get()
+        for _ in range(num_steps):
+            step += 1
+            t0 = time.perf_counter() if tr is not None else 0.0
+            with self.timings.measure("train/step"):
+                self.runner.step(step)
+            if tr is not None:
+                tr.complete("app.step", t0, step=step)
+            state["host"]["step"] = np.int64(step)
+            if pending is not None:
+                res = self.runner.sync_poll(pending[0])
+                if res is not None:
+                    synced_at = self._commit_boundary(
+                        state, pending[1], res, on_metrics
+                    )
+                    pending = None
+            if self.policy.should_checkpoint(step):
+                if pending is not None:
+                    # one epoch in flight at a time: the data plane must be
+                    # mirrored before the next SYNC rewrites it
+                    synced_at = self._collect_boundary(
+                        state, pending, on_metrics
+                    )
+                with self.timings.measure("train/proxy_sync_begin"):
+                    pending = (self.runner.sync_begin(), step)
+                if tr is not None:
+                    tr.instant("app.sync_begin", epoch=pending[0], step=step)
+            if stop is not None and stop():
+                break
+        if pending is not None:
+            synced_at = self._collect_boundary(state, pending, on_metrics)
+        if synced_at != step:
+            with self.timings.measure("train/proxy_sync"):
+                state["device"], info = self.runner.sync_state()
+            if on_metrics is not None:
+                on_metrics(step, info.get("metrics", {}))
+        return state
+
+    def _collect_boundary(
+        self,
+        state: Any,
+        pending: tuple[int, int],
+        on_metrics: Callable[[int, Any], None] | None,
+    ) -> int:
+        with self.timings.measure("train/proxy_sync"):
+            res = self.runner.sync_collect(pending[0])
+        return self._commit_boundary(state, pending[1], res, on_metrics)
+
+    def _commit_boundary(
+        self,
+        state: Any,
+        boundary: int,
+        res: tuple[Any, dict],
+        on_metrics: Callable[[int, Any], None] | None,
+    ) -> int:
+        """SYNCED{epoch} for a checkpoint boundary arrived: checkpoint the
+        boundary image under the boundary's step number (the loop may have
+        run ahead of it — the whole point of the overlap)."""
+        device, info = res
+        state["device"] = device
+        ck_state = dict(state)
+        ck_state["host"] = dict(state["host"])
+        ck_state["host"]["step"] = np.int64(boundary)
+        if on_metrics is not None:
+            on_metrics(boundary, info.get("metrics", {}))
+        r = self.checkpoint_now(boundary, ck_state)
+        r.stall_us = float(info.get("stall_us", 0.0))
+        return boundary
 
     def checkpoint_now(self, step: int, state: Any) -> CheckpointResult:
         r = self.checkpointer.save_async(step, state, meta={"wall": time.time()})
@@ -166,6 +296,8 @@ class CheckpointedTrainer:
         for r in self.results:
             r.done.wait()
         self.checkpointer.close()
+        if self.runner is not None:
+            self.runner.close()
         self._gc()  # in-flight persists have committed by now
         obs_metrics.dump_if_enabled("app")
         return list(self.results)

@@ -1,8 +1,10 @@
 """Dispatch for the kernels package.
 
-A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
-tensor goes to the hand-written kernel, and if the kernel cannot run the
-call raises — it never falls back to the plain version or to the host.
+A tensor on the CPU goes to the kernel's plain PyTorch version (the
+digests that cross to the host, ``host_chunk_digests``, take the numpy
+oracle there); a CUDA tensor goes to the hand-written kernel, and if the
+kernel cannot run the call raises — it never falls back to the plain
+version or to the host.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from repro_torch.checkpoint.chunking import chunk_digest_np, num_chunks
 from repro_torch.kernels import chunk_digest as _kernel
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
+from repro_torch.utils.dtypes import byte_view
 from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
 
 
@@ -63,15 +66,29 @@ def digests_to_u64(d: torch.Tensor | np.ndarray) -> np.ndarray:
     return (d[:, 0] << np.uint64(32)) | d[:, 1]
 
 
+def _np_chunk_digests(raw: np.ndarray, chunk_bytes: int) -> list[int]:
+    """Per-chunk u64 digests of host bytes with the numpy oracle."""
+    cb = int(chunk_bytes)
+    return [chunk_digest_np(raw[i * cb : min(raw.nbytes, (i + 1) * cb)])
+            for i in range(num_chunks(raw.nbytes, cb))]
+
+
 def host_chunk_digests(xs: Sequence[torch.Tensor], chunk_bytes: int) -> list[list[int]]:
-    """Per-chunk u64 digests of many tensors, on the host, in their order:
-    one grouped call for each device among them, whose table crosses to the
-    host in one copy (one call and one copy when all share a device)."""
+    """Per-chunk u64 digests of many tensors, on the host, in their order.
+
+    CPU tensors hash with ``chunk_digest_np`` over a zero-copy byte view
+    (the host oracle: the same bits, several times faster than the plain
+    torch version). Every other device takes one grouped call, whose table
+    crosses to the host in one copy."""
     by_device: dict[torch.device, list[int]] = {}
     for k, x in enumerate(xs):
         by_device.setdefault(x.device, []).append(k)
     out: list[list[int]] = [[] for _ in xs]
-    for ks in by_device.values():
+    for device, ks in by_device.items():
+        if device.type == "cpu":
+            for k in ks:
+                out[k] = _np_chunk_digests(byte_view(xs[k]).numpy(), chunk_bytes)
+            continue
         table, b = chunk_digest_table([xs[k] for k in ks], chunk_bytes)
         d = digests_to_u64(table).tolist()
         for j, k in enumerate(ks):
@@ -82,25 +99,16 @@ def host_chunk_digests(xs: Sequence[torch.Tensor], chunk_bytes: int) -> list[lis
 def tree_chunk_digests(state: Any, chunk_bytes: int) -> dict[str, list[int]]:
     """Per-chunk u64 digests of every leaf: {path: [digest, ...]}.
 
-    All tensor leaves go through one grouped call (the kernel on the card,
-    the plain version on the CPU) and one copy of its table to the host;
-    host leaves hash with the bit-identical numpy reference.
+    Tensor leaves go through :func:`host_chunk_digests` (card tensors: one
+    grouped kernel call and one copy of its table to the host); host leaves
+    hash with the bit-identical numpy oracle.
     """
     flat, _ = flatten_with_paths(state)
     tensors = {p: leaf for p, leaf in flat.items() if isinstance(leaf, torch.Tensor)}
     digests = dict(zip(tensors, host_chunk_digests(list(tensors.values()), chunk_bytes)))
-    out: dict[str, list[int]] = {}
-    for path, leaf in flat.items():
-        if path in digests:
-            out[path] = digests[path]
-            continue
-        raw = leaf_bytes(leaf)
-        cb = int(chunk_bytes)
-        out[path] = [
-            chunk_digest_np(raw[i * cb : min(raw.nbytes, (i + 1) * cb)])
-            for i in range(num_chunks(raw.nbytes, cb))
-        ]
-    return out
+    return {path: digests[path] if path in digests
+            else _np_chunk_digests(leaf_bytes(leaf), chunk_bytes)
+            for path, leaf in flat.items()}
 
 
 def flash_attention(

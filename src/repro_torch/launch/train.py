@@ -1,19 +1,25 @@
 """End-to-end training entry point with CRUM fault tolerance (PyTorch port).
 
-The inline runner of the reference's ``launch/train.py``, with its flags
-plus ``--device`` (default ``cuda``; it raises when there is no card, and
-the CPU runs only when asked for). The flags of unported modes
-(``--device-runner proxy``, ``--device-capacity``, ``--production-mesh``)
-raise; the managed-memory tuning flags are left out until that mode is
-ported. The CheckpointedTrainer provides
-forked checkpointing, incremental persistence and restart: re-running the
-same command resumes from the newest committed step.
+The reference's ``launch/train.py`` with its inline and proxy runners and
+their flags, plus ``--device`` (default ``cuda``; it raises when there is
+no card, and the CPU runs only when asked for). With ``--device-runner
+proxy`` this process never touches the device: a ``train_arch`` step
+program runs in a supervised proxy process that owns the card, and this
+process keeps the host mirror and checkpoints it. The flags of unported
+modes (``--device-capacity``, ``--production-mesh``) raise; the
+managed-memory tuning flags are left out until that mode is ported. The
+CheckpointedTrainer provides forked checkpointing, incremental persistence
+and restart: re-running the same command resumes from the newest
+committed step.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --steps 6 --batch 4 --seq 512 --ckpt-every 2 --backend fork \\
         --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --smoke --steps 12 --batch 4 --seq 32 --device cpu --ckpt-dir /tmp/ck
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+        --smoke --steps 6 --batch 4 --seq 32 --ckpt-every 2 \\
+        --device-runner proxy --device cpu --ckpt-dir /tmp/ck-proxy
 """
 from __future__ import annotations
 
@@ -117,7 +123,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     ap.add_argument(
         "--device-runner", choices=["inline", "proxy"], default="inline",
-        help="inline: step fn runs in-process; proxy: not ported yet",
+        help="inline: step fn runs in-process; proxy: in a restartable "
+             "proxy process that owns the device (this one stays device-clean)",
     )
     ap.add_argument("--device-capacity", default=None, metavar="BYTES|PCT%",
                     help="managed-memory (UVM) mode: not ported yet")
@@ -137,12 +144,12 @@ def train(argv=None) -> dict:
     """Run the CLI. Returns the final step, the checkpoint results, the final
     state, the last step's metrics and the phase timings."""
     args = parse_args(argv)
-    if args.device_runner != "inline":
-        raise NotImplementedError("--device-runner proxy is not ported yet")
     if args.device_capacity is not None:
         raise NotImplementedError("--device-capacity (UVM) is not ported yet")
     if args.production_mesh:
         raise NotImplementedError("--production-mesh is not ported yet")
+    if args.device_runner == "proxy":
+        return _train_proxy(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
         # restart must reproduce the uninterrupted run bit for bit, as in the
@@ -216,6 +223,85 @@ def train(argv=None) -> dict:
             )
     finally:
         preempt.uninstall()
+    return {"final_step": step, "results": done, "state": state,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "timings": trainer.timings.summary()}
+
+
+def _train_proxy(args: argparse.Namespace) -> dict:
+    """The paper's architecture: this process never runs the step function.
+
+    A ``train_arch`` step program (rebuilt from the CLI config inside the
+    proxy — programs are replayable specs, not closures) executes in a
+    supervised proxy process on ``--device``; this process forwards
+    pipelined STEP calls, syncs the host mirror at checkpoint boundaries,
+    and persists it with the same forked checkpointer. It never creates a
+    CUDA context: the device is named in the spec and resolved in the
+    proxy. Batches are deterministic in the step number, which is what
+    makes kill-replay recovery bit-identical.
+    """
+    program = {
+        "name": "train_arch",
+        "arch": args.arch,
+        "smoke": bool(args.smoke),
+        "batch": args.batch,
+        "seq": args.seq,
+        "lr": args.lr,
+        "total_steps": args.steps,
+        "device": args.device,
+    }
+    if args.obs_dir:
+        obs_trace.enable(args.obs_dir, "app")
+    trainer = CheckpointedTrainer(
+        None,
+        store_root=args.ckpt_dir,
+        policy=CheckpointPolicy(interval_steps=args.ckpt_every, keep_last=2),
+        codec=args.codec,
+        incremental=not args.no_incremental,
+        chunk_bytes=1 << 20,
+        backend=args.backend,
+        device_runner="proxy",
+        program=program,
+    )
+    preempt = PreemptionHandler(trainer.policy).install()
+    metrics: dict = {}
+    try:
+        # device side None: the runner asks the program for its init, built
+        # on the host here, and pushes it into the proxy
+        state, start = trainer.resume_or(
+            lambda: {"device": None, "host": {"step": np.int64(0)}})
+        print(f"[train] arch={args.arch} device_runner=proxy start_step={start} "
+              f"device={args.device} proxy_pid={trainer.runner.proxy.pid}",
+              flush=True)
+
+        def on_metrics(step, m):
+            metrics.clear()
+            metrics.update(m)
+            loss = m.get("loss")
+            loss_s = f"{loss:.4f}" if loss is not None else "n/a"
+            print(f"[train] step={step} loss={loss_s} "
+                  f"proxy_restarts={trainer.runner.restarts}", flush=True)
+
+        state = trainer.run(
+            state, num_steps=args.steps - start, start_step=start,
+            on_metrics=on_metrics, stop=preempt.received.is_set,
+        )
+        step = int(np.asarray(state["host"]["step"]))
+        if preempt.received.is_set() and _needs_preempt_ckpt(trainer, step):
+            print("[train] preemption: checkpointing and exiting", flush=True)
+            trainer.checkpoint_now(step, state)
+        done = trainer.finish()
+        for r in done:
+            print(
+                f"[ckpt-done] step={r.step} blocking={r.blocking_s*1e3:.1f}ms "
+                f"persist={r.persist_s*1e3:.1f}ms stall={r.stall_us / 1e3:.1f}ms "
+                f"written={r.chunks_written} reused={r.chunks_reused}",
+                flush=True,
+            )
+    finally:
+        preempt.uninstall()
+        if trainer.runner is not None:
+            trainer.runner.close()
     return {"final_step": step, "results": done, "state": state,
             "metrics": {k: float(v) for k, v in metrics.items()},
             "timings": trainer.timings.summary()}

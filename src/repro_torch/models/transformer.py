@@ -205,15 +205,17 @@ class Transformer(nn.Module):
         return out
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Random params as a nested dict, made on the generator's device.
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device | str | None = None) -> dict:
+    """Random params as a nested dict, made on the generator's device (or on
+    ``device``: ``"meta"`` gives the structure alone, drawing nothing).
 
     The same distributions as the reference's ``init_params`` (normal
     weights scaled by 1/sqrt(fan-in), embeddings by 0.02, zero norms and
     biases); the numbers differ, since the two RNG streams differ.
     """
     dtype = torch_dtype(cfg.param_dtype)
-    dev = generator.device
+    dev = torch.device(device) if device is not None else generator.device
     L, D, Q, KV, F = (cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
                       cfg.d_ff)
 

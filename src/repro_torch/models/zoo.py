@@ -118,7 +118,7 @@ def _build_dense(cfg: ModelConfig) -> Model:
 
     return Model(
         cfg=cfg,
-        init=lambda generator: tfm.init_params(cfg, generator),
+        init=lambda generator, device=None: tfm.init_params(cfg, generator, device),
         loss=loss,
         forward=forward,
         prefill=lambda params, batch, cache_len: tfm.prefill(

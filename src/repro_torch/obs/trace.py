@@ -30,11 +30,17 @@ Correlation IDs ride as event ``args``: ``step`` (training step),
 ``epoch`` (SYNC epoch), ``inc`` (proxy incarnation = restarts spent),
 ``run`` (run id). They are threaded through the existing control frames
 (REGISTER ``obs`` field), never through new side channels.
+
+Causal contexts — ``{"trace", "span", "parent"}`` — name the span a frame's
+receiver emits (:func:`span_context`, :func:`child_span`), so a merged
+trace links the application's spans to the proxy work they caused. A frame
+carries one only while tracing is on: untraced frames stay byte-identical.
 """
 from __future__ import annotations
 
 import json
 import os
+import random
 import threading
 import time
 
@@ -49,7 +55,55 @@ __all__ = [
     "get",
     "ENV_DIR",
     "ENV_RUN",
+    "new_span_id",
+    "round_trace_id",
+    "span_context",
+    "child_span",
+    "ctx_args",
 ]
+
+
+# -- causal trace contexts -------------------------------------------------
+
+
+def new_span_id() -> int:
+    """A fresh 63-bit span id (non-zero, msgpack/JSON-safe positive int)."""
+    return random.getrandbits(63) | 1
+
+
+def round_trace_id(step: int) -> str:
+    """The trace id naming checkpoint round ``step``'s causal tree."""
+    return f"round:{int(step)}"
+
+
+def span_context(
+    trace_id: str, *, parent: int | None = None, span: int | None = None
+) -> dict:
+    """Build a context naming span ``span`` (fresh id if None) in a trace."""
+    ctx: dict = {
+        "trace": trace_id,
+        "span": int(span) if span is not None else new_span_id(),
+    }
+    if parent is not None:
+        ctx["parent"] = int(parent)
+    return ctx
+
+
+def child_span(ctx: dict | None) -> dict | None:
+    """A fresh child context under ``ctx`` (None stays None — no-op path)."""
+    if not ctx:
+        return None
+    return {"trace": ctx["trace"], "span": new_span_id(), "parent": ctx["span"]}
+
+
+def ctx_args(ctx: dict | None) -> dict:
+    """Flatten a context into span ``args`` keys ({} when no context)."""
+    if not ctx or "span" not in ctx:
+        return {}
+    out = {"trace": ctx.get("trace"), "span": ctx["span"]}
+    if ctx.get("parent") is not None:
+        out["parent"] = ctx["parent"]
+    return out
 
 
 class _Span:

@@ -105,7 +105,7 @@ def tree_digest(tree: Any) -> str:
     h = hashlib.sha256()
     for path in sorted(flat):
         h.update(path.encode())
-        h.update(leaf_bytes(flat[path]).tobytes())
+        h.update(leaf_bytes(flat[path]))  # hashed in place: no host copy
     return h.hexdigest()[:16]
 
 

@@ -330,3 +330,49 @@ def test_resolved_card_carries_its_index(cuda):
 
     dev = resolve_device("cuda")
     assert dev.type == "cuda" and dev.index == torch.cuda.current_device()
+
+
+def test_proxy_on_card_replays_bitwise(deterministic):
+    """The proxy owns the card: a smoke train_arch run with fused digests,
+    SIGKILLed once and replayed from the API log, equals the same steps run
+    inline on the card bit for bit. Every proxied step digests its output
+    in one grouped chunk_digest launch in the proxy (counted in the SYNCED
+    frame), every chunk arrives prehashed at the boundary, and the ack's
+    per-chunk table equals the host oracle over the mirror."""
+    from repro_torch.checkpoint.chunking import chunk_digest_np
+    from repro_torch.proxy import ProxyRunner, make_program
+    from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
+
+    spec = {"name": "train_arch", "arch": "qwen2-0.5b", "smoke": True, "batch": 2,
+            "seq": 32, "lr": 3e-4, "total_steps": 6, "device": "cuda"}
+    prog = make_program(spec)
+    want = prog.on_restore(prog.init_state())
+    for s in range(1, 7):
+        want, _ = prog.step(want, s)
+    cb = 1 << 12
+    n_chunks = sum(-(-leaf_bytes(t).nbytes // cb)
+                   for t in flatten_with_paths(want)[0].values())
+    r = ProxyRunner(spec, chunk_bytes=cb, fused_digests=True, max_restarts=2,
+                    op_timeout_s=120.0, sync_timeout_s=120.0)
+    r.start()
+    try:
+        for s in range(1, 4):
+            r.step(s)
+        infos = [r.sync_state()[1]]
+        r.kill()
+        for s in range(4, 7):
+            r.step(s)
+        state, info = r.sync_state()
+        infos.append(info)
+        assert r.restarts == 1
+        assert tree_equal(state, want)
+        for i in infos:
+            phase = i["phase_us"]
+            assert phase["prehashed_chunks"] == n_chunks and phase["digest"] == 0.0
+            assert phase["digest_launches"] == phase["steps"] > 0
+        host = {p: [chunk_digest_np(raw[i : i + cb]) for i in range(0, raw.nbytes, cb)]
+                for p, raw in ((p, leaf_bytes(t))
+                               for p, t in flatten_with_paths(state)[0].items())}
+        assert info["chunk_digests"] == host
+    finally:
+        r.close()

@@ -1,7 +1,8 @@
 """PyTorch port: the package stands alone — no JAX, no reference package.
 
-``repro_torch`` may import ``torch`` but never ``jax``, ``jaxlib`` or
-anything of ``repro``: it keeps its own copies of what it needs. Its entry
+``repro_torch`` may import ``torch`` but never ``jax``, ``jaxlib``,
+anything of ``repro``, ``msgpack`` or ``ml_dtypes`` (the card's machine has
+neither of the last two): it keeps its own copies of what it needs. Its entry
 points run on the card unless the CPU is asked for.
 """
 import pathlib
@@ -26,7 +27,8 @@ def test_every_module_imports_without_jax_or_reference():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'msgpack', 'ml_dtypes'))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n"
     )
