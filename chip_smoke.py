@@ -52,8 +52,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    attention, ``scaled_dot_product_attention``'s (the kernel's ratio to it
    and its share of the bound on the ``[timing] flash`` line), printed as
    one ``{"kernels": [...]}`` JSON line;
-7. the proxy path (``[proxy]``): qwen2-0.5b at full width and depth,
-   batch 4, seq 512, 6 steps, a checkpoint every 2 steps, fork backend,
+7. the proxy path (``[proxy]``): qwen2-0.5b at full width and 4 of its
+   24 layers (a cut for the script's time), batch 4, seq 512, 6 steps, a
+   checkpoint every 2 steps, fork backend,
    codec ``none``, 1 MiB chunks, the segment transport and fused digests,
    trained by ``CheckpointedTrainer(device_runner="proxy")``: a child
    Python process that never creates a CUDA context drives a proxy process
@@ -66,7 +67,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    host-built init and runs 6 steps inline: the killed run's step-6 image,
    the restored run's step-6 state and the inline state must be equal bit
    for bit. Every SYNCED after a run's first must carry ``prehashed_chunks``
-   equal to the state's 4,739 chunks and one ``chunk_digest`` launch per
+   equal to the state's chunks and one ``chunk_digest`` launch per
    step of its window (the fused digest, in the proxy), and one ack's
    per-chunk digest table must equal ``chunk_digest_np`` over the mirror.
    This process watches each application from outside while it runs: the
@@ -78,13 +79,32 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    persist, the recovery, ``restore_into_proxy``'s time and the segment
    directory (``/dev/shm`` when it holds 1.25x the state, else a directory
    under the temp dir), each beside the card's name and power limit;
-8. the last line: ``{"ok": true, "device": {...}}``.
+8. managed memory (``[uvm]``): the train CLI as in 3, full size, with
+   ``--device-capacity 50%`` (frames for 2.47 GB of the 4.94 GB state),
+   64 KiB pages and LRU: per step its wall, page-in and page-out ms,
+   faults, evictions, write-backs and H2D/D2H bytes; per checkpoint
+   blocking, the peek before it, chunks synced and ``chunk_digest``
+   launches (0: page marks replace the digest). It must evict, keep its
+   resident high water within the budget and its page tables clean, and
+   end bitwise equal to 3's unmanaged step 6; the managed step-4 image,
+   run to step 6 under the budget, must equal that too. Table 2 on the
+   managed state: a managed trainer resumed from step 6 checkpoints step 8
+   forked and step 10 through ``save_sync`` (each the first sync of its
+   buffer): ``forked_blocking_ms``, ``sync_ms``, ``speedup_vs_naive``.
+   ``[uvm:paged]``: the full-depth proxy program with the same budget in
+   a proxy process, 4 steps, checkpoints at 2 and 4, SIGKILLed once after
+   step 3 is issued: one restart, ``paging`` in every SYNCED, one digest
+   launch per step, no ``/dev/nvidia-uvm`` in the application, and its
+   step-4 image bitwise equal to the same program run 4 steps inline
+   through a managed trainer;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is available.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -699,24 +719,30 @@ def phase_flash_timing(serve_launches: int) -> dict:
     return row
 
 
-PROXY_SPEC = {"name": "train_arch", "arch": ARCH, "smoke": False, "batch": BATCH,
-              "seq": SEQ, "lr": LR, "total_steps": STEPS, "device": "cuda"}
+# [uvm:paged] trains this at full depth; [proxy] at PROXY_LAYERS of its 24
+# layers (full width), a cut for the script's time (PERF.md §4)
+UVM_SPEC = {"name": "train_arch", "arch": ARCH, "smoke": False, "batch": BATCH,
+            "seq": SEQ, "lr": LR, "total_steps": STEPS, "device": "cuda"}
+PROXY_LAYERS = 4
+PROXY_SPEC = dict(UVM_SPEC, num_layers=PROXY_LAYERS)
 PROXY_CHUNK = 1 << 20
 
 
 def proxy_child(cfg: dict) -> int:
     """One proxied run, in a process that must never create a CUDA context:
     ``killed`` trains steps 1-6 and SIGKILLs the proxy after step 5 is
-    issued; ``restored`` resumes from the killed run's step-4 image. The
-    program spec and chunk size come in ``cfg``. Writes what it saw to
-    ``cfg["out"]`` as JSON."""
+    issued; ``restored`` resumes from the killed run's step-4 image;
+    ``paged`` trains steps 1-4 in a proxy whose device state is a managed
+    space under ``cfg["capacity"]`` bytes and SIGKILLs it after step 3 is
+    issued. The program spec, chunk size and kill step come in ``cfg``.
+    Writes what it saw to ``cfg["out"]`` as JSON."""
     from repro_torch.checkpoint import ChunkStore
     from repro_torch.checkpoint.chunking import chunk_digest_np
     from repro_torch.core import CheckpointedTrainer, CheckpointPolicy, RestoreManager
     from repro_torch.utils.tree import flatten_with_paths, leaf_bytes, tree_digest
 
-    tag = f"[proxy:{cfg['role']}]"
-    cb, n_steps = cfg["chunk"], cfg["spec"]["total_steps"]
+    tag = f"[{cfg.get('tag', 'proxy')}:{cfg['role']}]"
+    cb, n_steps = cfg["chunk"], cfg.get("steps", cfg["spec"]["total_steps"])
     trainer = CheckpointedTrainer(
         None, store_root=cfg["store"],
         policy=CheckpointPolicy(interval_steps=2, keep_last=2),
@@ -724,6 +750,8 @@ def proxy_child(cfg: dict) -> int:
         device_runner="proxy", program=cfg["spec"],
         proxy_opts={"fused_digests": True, "transport": "segment",
                     "workdir": cfg["workdir"]},
+        device_capacity_bytes=cfg.get("capacity"), page_bytes=cfg.get("page_bytes"),
+        eviction_policy=cfg.get("policy", "lru"),
     )
     runner = trainer.runner
     syncs, oracle = [], {}
@@ -732,7 +760,7 @@ def proxy_child(cfg: dict) -> int:
     def recording(epoch, msg, *, stall_us):
         state, info = finish_sync(epoch, msg, stall_us=stall_us)
         syncs.append({k: info.get(k) for k in ("step", "chunks_synced", "stall_us",
-                                               "phase_us")})
+                                               "phase_us", "paging")})
         if cfg["role"] == "killed" and not oracle and info.get("chunk_digests"):
             # the proxy's table (the CUDA kernel's digests of the step's
             # output) against the host oracle over the acknowledged mirror
@@ -759,14 +787,14 @@ def proxy_child(cfg: dict) -> int:
 
     runner.step = timed_step
     t0 = time.perf_counter()
-    if cfg["role"] == "killed":
+    if cfg["role"] != "restored":
         state, start = trainer.resume_or(
             lambda: {"device": None, "host": {"step": np.int64(0)}})
         startup_s = time.perf_counter() - t0
         killed = []
 
-        def stop() -> bool:  # after step 5 is issued: SIGKILL the proxy once
-            if int(state["host"]["step"]) == 5 and not killed:
+        def stop() -> bool:  # after the kill step is issued: SIGKILL the proxy once
+            if int(state["host"]["step"]) == cfg["kill_after"] and not killed:
                 killed.append(runner.kill())
             return False
 
@@ -897,7 +925,8 @@ def phase_proxy(card: str) -> dict:
               f"/dev/shm_free={free} -> segments in "
               f"{'/dev/shm' if workdir is None else workdir}", flush=True)
         base = {"workdir": workdir, "spec": PROXY_SPEC, "chunk": PROXY_CHUNK}
-        killed = _run_proxy_child(dict(base, role="killed", store=os.path.join(tmp, "a"),
+        killed = _run_proxy_child(dict(base, role="killed", kill_after=5,
+                                       store=os.path.join(tmp, "a"),
                                        out=os.path.join(tmp, "a.json")), 600)
         restored = _run_proxy_child(dict(base, role="restored", store=os.path.join(tmp, "b"),
                                          src_store=os.path.join(tmp, "a"),
@@ -1025,6 +1054,341 @@ def phase_proxy(card: str) -> dict:
     return {"launches": launches, "steps": steps}
 
 
+UVM_CAPACITY, UVM_PAGE = "50%", 64 << 10
+_UVM_COUNTERS = ("faults", "evictions", "writebacks", "h2d_bytes", "d2h_bytes")
+
+
+@contextlib.contextmanager
+def _watch_uvm():
+    """Times every managed-space device read, write and peek (each between
+    two synchronizes) with the paging counters it moved, and every
+    checkpoint's phase 1 with the chunk_digest launches its sync made —
+    from outside the code: the methods are wrapped, nothing in the port
+    measures for this."""
+    from repro_torch.core.forked import ForkedCheckpointer
+    from repro_torch.kernels import chunk_digest
+    from repro_torch.uvm import ManagedSpace
+
+    log = {"read_state": [], "write_state": [], "peek_state": [], "ckpt": [], "spaces": []}
+    saved = {name: getattr(ManagedSpace, name) for name in log if name.endswith("state")}
+    save_async = ForkedCheckpointer.save_async
+
+    def wrap(name):
+        fn = saved[name]
+
+        def timed(self, *args, **kwargs):
+            if not any(sp is self for sp in log["spaces"]):
+                log["spaces"].append(self)
+            torch.cuda.synchronize()
+            before = self.stats.as_dict()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            after = self.stats.as_dict()
+            log[name].append(dict(t0=t0, t1=t1, ms=(t1 - t0) * 1e3,
+                                  **{k: after[k] - before[k] for k in _UVM_COUNTERS}))
+            return out
+        return timed
+
+    def counted_save(self, step, state, **kwargs):
+        before = chunk_digest.chunk_digests.launches
+        t0 = time.perf_counter()
+        r = save_async(self, step, state, **kwargs)
+        log["ckpt"].append(dict(step=step, t0=t0, t1=time.perf_counter(), result=r,
+                                launches=chunk_digest.chunk_digests.launches - before))
+        return r
+
+    for name in saved:
+        setattr(ManagedSpace, name, wrap(name))
+    ForkedCheckpointer.save_async = counted_save
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(ManagedSpace, name, fn)
+        ForkedCheckpointer.save_async = save_async
+
+
+def _uvm_steps(log, card: str, first_step: int) -> list[dict]:
+    """One row per managed step of a watched run: wall (from its page-in
+    to the next step's, the last to its checkpoint's end), page-in,
+    page-out, the counters they moved, and its checkpoint's phase 1 with
+    the peek that preceded it."""
+    reads, writes = log["read_state"], log["write_state"]
+    events = reads + writes + log["peek_state"] + log["ckpt"]
+    rows = []
+    for i, (rd, wr) in enumerate(zip(reads, writes)):
+        end = reads[i + 1]["t0"] if i + 1 < len(reads) else max(
+            e["t1"] for e in events if e["t0"] >= rd["t0"])
+        row = {"step": first_step + i + 1, "wall_ms": (end - rd["t0"]) * 1e3,
+               "page_in_ms": rd["ms"], "page_out_ms": wr["ms"],
+               **{k: rd[k] + wr[k] for k in _UVM_COUNTERS}}
+        ck = [c for c in log["ckpt"] if wr["t1"] <= c["t0"] <= end]
+        if ck:
+            c = ck[0]
+            peek = [p for p in log["peek_state"] if wr["t1"] <= p["t0"] <= c["t0"]]
+            row.update(ckpt=True, blocking_ms=c["result"].blocking_s * 1e3,
+                       synced=c["result"].chunks_synced, digest_launches=c["launches"],
+                       peek_ms=sum(p["ms"] for p in peek),
+                       peek_d2h_bytes=sum(p["d2h_bytes"] for p in peek))
+        rows.append(row)
+    body = [r["wall_ms"] for r in rows if "ckpt" not in r]
+    for r in rows:
+        line = (f"[uvm] {card} step={r['step']} wall_ms={r['wall_ms']:.1f} "
+                f"page_in_ms={r['page_in_ms']:.1f} page_out_ms={r['page_out_ms']:.1f} "
+                f"faults={r['faults']} evictions={r['evictions']} "
+                f"writebacks={r['writebacks']} h2d_bytes={r['h2d_bytes']} "
+                f"d2h_bytes={r['d2h_bytes']}")
+        if "ckpt" in r:
+            rest = r["wall_ms"] - (sum(body) / len(body) if body else 0.0) - r["blocking_ms"]
+            line += (f" | ckpt blocking_ms={r['blocking_ms']:.1f} peek_ms={r['peek_ms']:.1f} "
+                     f"(wall - mean plain step - blocking = {rest:.1f}) "
+                     f"chunks_synced={r['synced']} digest_launches={r['digest_launches']}")
+        print(line, flush=True)
+    return rows
+
+
+def _cpu_tree(tree):
+    from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
+
+    flat, treedef = flatten_with_paths(tree)
+    return unflatten_from_paths(treedef, {
+        p: v.cpu() if isinstance(v, torch.Tensor) else v for p, v in flat.items()})
+
+
+def phase_uvm(card: str, unmanaged6) -> dict:
+    """Managed memory (``[uvm]``): the train CLI with ``--device-capacity
+    50%`` (64 KiB pages, LRU), the restart from its step-4 image, Table 2
+    (forked phase 1 against ``save_sync``) on the managed state, and the
+    same budget inside a proxy that is SIGKILLed once."""
+    import gc
+
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.configs import get_config
+    from repro_torch.core import (CheckpointedTrainer, CheckpointPolicy,
+                                  ForkedCheckpointer, RestoreManager)
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.launch import train
+    from repro_torch.launch.train import build_training
+    from repro_torch.proxy import make_program
+    from repro_torch.runtime.steps import batch_to_device
+    from repro_torch.utils.tree import tree_equal
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(ARCH)
+    run = build_training(cfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=STEPS, device=cuda)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-uvm-") as tmp:
+        store = os.path.join(tmp, "ckpt")
+        argv = ["--arch", ARCH, "--steps", str(STEPS), "--batch", str(BATCH),
+                "--seq", str(SEQ), "--lr", str(LR), "--ckpt-every", "2", "--backend", "fork",
+                "--codec", "none", "--log-every", "1", "--ckpt-dir", store,
+                "--device-capacity", UVM_CAPACITY, "--page-bytes", str(UVM_PAGE),
+                "--eviction-policy", "lru"]
+        _zero_counts()
+        t0 = time.perf_counter()
+        with _watch_uvm() as log:
+            res = train.train(argv)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        space = log["spaces"][0]
+        paging = res["paging"]
+        cap = paging["device_capacity_bytes"]
+        rows = _uvm_steps(log, card, 0)
+        for r in res["results"]:
+            print(f"[uvm] {card} ckpt step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
+                  f"persist_ms={r.persist_s * 1e3:.1f} synced={r.chunks_synced} "
+                  f"written={r.chunks_written} digest_ms={r.digest_us / 1e3:.1f}", flush=True)
+        space.check_invariants()
+        managed6 = res["state"]["device"]
+        same6 = tree_equal(managed6, unmanaged6)
+        print(f"[uvm] {card} cli wall_s={wall:.1f} loss={res['metrics']['loss']:.4f} "
+              f"capacity={cap} state={paging['total_bytes']} "
+              f"resident_high_water={paging['resident_high_water']} "
+              f"faults={paging['faults']} evictions={paging['evictions']} "
+              f"writebacks={paging['writebacks']} h2d_bytes={paging['h2d_bytes']} "
+              f"d2h_bytes={paging['d2h_bytes']} chunk_digest_launches={counts['chunk_digest']} "
+              f"flash_attention_launches={counts['flash_attention']} invariants=clean "
+              f"step6_bitwise_equal_to_unmanaged={same6}", flush=True)
+        if paging["evictions"] <= 0 or paging["resident_high_water"] > cap:
+            raise SystemExit(f"managed run did not page under its budget: {paging}")
+        if counts["chunk_digest"]:
+            raise SystemExit(f"a page-delta sync launched chunk_digest "
+                             f"{counts['chunk_digest']} times")
+        if not same6:
+            raise SystemExit("managed step-6 state differs from the unmanaged one")
+        del space, log, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # restart: the managed step-4 image, run to step 6 under the budget
+        def managed_trainer(root, interval, **kw):
+            return CheckpointedTrainer(
+                run.step_fn, store_root=root,
+                policy=CheckpointPolicy(interval_steps=interval, keep_last=2),
+                codec="none", chunk_bytes=1 << 20, backend="fork",
+                device_capacity_bytes=cap, page_bytes=UVM_PAGE, eviction_policy="lru",
+                device=cuda, **kw)
+
+        def batches(state):
+            data = SyntheticBatches.from_state(cfg, batch=BATCH, seq_len=SEQ,
+                                               state=state["host"]["data"])
+            while True:
+                batch = batch_to_device(next(data), cuda)
+                state["host"]["data"] = data.state()
+                yield batch
+
+        state, _ = RestoreManager(ChunkStore(store)).restore(
+            step=4, device_for=lambda p, s: "cpu" if p.startswith("device/") else None)
+        tr = managed_trainer(os.path.join(tmp, "restart"), 1000)
+        state = tr.run(state, batches(state), num_steps=2, start_step=4)
+        tr.finish()
+        same_restart = tree_equal(state["device"], managed6)
+        print(f"[uvm] {card} restored step 4, ran 5..6 managed: "
+              f"bitwise_equal={same_restart}", flush=True)
+        if not same_restart:
+            raise SystemExit("managed restart diverged from the managed step-6 state")
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the inline (unmanaged) step on the card, in this call: the same
+        # step-4 image placed on the card, steps 5 and 6 synchronised
+        state, _ = RestoreManager(ChunkStore(store)).restore(step=4, device_for=run.device_for)
+        inline_ms = []
+        feed = batches(state)
+        for _ in range(2):
+            batch = next(feed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state["device"], _ = run.step_fn(state["device"], batch)
+            torch.cuda.synchronize()
+            inline_ms.append((time.perf_counter() - t0) * 1e3)
+        same_inline = tree_equal(state["device"], managed6)
+        plain = {r["step"]: r["wall_ms"] for r in rows if "ckpt" not in r and r["step"] > 1}
+        ratio = (sum(plain.values()) / len(plain)) / (sum(inline_ms) / len(inline_ms))
+        print(f"[uvm] {card} step_ms managed (warm, no checkpoint: steps {list(plain)}) "
+              f"{' '.join(f'{t:.1f}' for t in plain.values())}; inline on the card "
+              f"(steps 5, 6 from the step-4 image) {' '.join(f'{t:.1f}' for t in inline_ms)}; "
+              f"managed/inline={ratio:.1f} inline_step6_bitwise_equal={same_inline}", flush=True)
+        if not same_inline:
+            raise SystemExit("the managed step-4 image stepped inline differs at step 6")
+        del state, feed, managed6
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Table 2 on the managed state: forked phase 1 at step 8 against the
+        # naive synchronous save at step 10, each the first sync of its buffer
+        tr = managed_trainer(store, 2)
+        state, start = tr.resume_or(run.init_state)
+        if start != STEPS:
+            raise SystemExit(f"Table 2 resumed from step {start}, not {STEPS}")
+        state = tr.run(state, batches(state), num_steps=2, start_step=start)
+        forked = tr.results[-1]
+        tr.checkpointer.wait_all()  # its persist does not share the disk with the next
+        tr.policy.interval_steps = 1000
+        state = tr.run(state, batches(state), num_steps=2, start_step=start + 2)
+        tr.materialize(state)
+        naive = ForkedCheckpointer(ChunkStore(store), codec="none", chunk_bytes=1 << 20,
+                                   backend="fork",
+                                   dirty_source=tr.space.as_dirty_source("device/"))
+        sync = naive.save_sync(start + 4, state)
+        naive.close()
+        tr.finish()
+        if forked.step != start + 2 or forked.error or sync.error:
+            raise SystemExit(f"Table 2 checkpoints failed: {forked.step} {forked.error} "
+                             f"{sync.error}")
+        out["table2"] = {"forked_blocking_ms": forked.blocking_s * 1e3,
+                         "forked_persist_ms": forked.persist_s * 1e3,
+                         "sync_ms": sync.blocking_s * 1e3}
+        t2 = out["table2"]
+        t2["speedup_vs_naive"] = t2["sync_ms"] / t2["forked_blocking_ms"]
+        print(f"[uvm:table2] {card} forked_blocking_ms={t2['forked_blocking_ms']:.1f} "
+              f"(step {forked.step}, persist_ms={t2['forked_persist_ms']:.1f}) "
+              f"sync_ms={t2['sync_ms']:.1f} (save_sync step {sync.step}: phase 1 + "
+              f"persist) speedup_vs_naive={t2['speedup_vs_naive']:.2f}", flush=True)
+        del tr, state, naive
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the same budget inside a proxy, killed once after step 3 is issued,
+        # held against an inline managed run of the same program
+        prog = make_program(UVM_SPEC)
+        pcap = train._resolve_capacity(UVM_CAPACITY, prog.state_nbytes())
+        shm = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
+        workdir = None
+        if (shm.f_bavail * shm.f_frsize if shm else 0) < 1.25 * prog.state_nbytes():
+            workdir = os.path.join(tmp, "segments")
+            os.makedirs(workdir)
+        paged = _run_proxy_child({
+            "workdir": workdir, "spec": UVM_SPEC, "chunk": PROXY_CHUNK, "tag": "uvm",
+            "role": "paged", "kill_after": 3, "steps": 4, "capacity": pcap,
+            "page_bytes": UVM_PAGE, "policy": "lru", "store": os.path.join(tmp, "paged"),
+            "out": os.path.join(tmp, "paged.json")}, 900)
+        _zero_counts()
+        tr = CheckpointedTrainer(
+            lambda d, n: prog.step(d, n), store_root=os.path.join(tmp, "inline"),
+            policy=CheckpointPolicy(interval_steps=1000), device_capacity_bytes=pcap,
+            page_bytes=UVM_PAGE, eviction_policy="lru", device=cuda)
+        t0 = time.perf_counter()
+        state = {"device": prog.init_state(), "host": {"step": np.int64(0)}}
+        state = tr.run(state, iter(range(1, 5)), num_steps=4)
+        tr.finish()
+        inline_s = time.perf_counter() - t0
+        inline_counts = _counts()
+        image, _ = RestoreManager(ChunkStore(os.path.join(tmp, "paged"))).restore(step=4)
+        same_paged = tree_equal(image["device"], state["device"])
+        del tr, state, image
+    for sy in paged["syncs"]:
+        ph, pg = sy["phase_us"], sy.get("paging") or {}
+        print(f"[uvm:paged] {card} synced step={sy['step']} chunks_synced={sy['chunks_synced']} "
+              f"prehashed={ph.get('prehashed_chunks')} steps={ph.get('steps')} "
+              f"digest_launches={ph.get('digest_launches')} "
+              f"flash_launches={ph.get('flash_launches')} "
+              f"proxy_step_ms={ph.get('step', 0) / 1e3 / max(ph.get('steps', 0), 1):.1f} "
+              f"page_in_ms={ph.get('page_in', 0) / 1e3:.1f} "
+              f"page_out_ms={ph.get('page_out', 0) / 1e3:.1f} "
+              f"peek_ms={ph.get('peek', 0) / 1e3:.1f} sync_ms={ph.get('sync', 0) / 1e3:.1f} "
+              f"faults={pg.get('faults')} evictions={pg.get('evictions')} "
+              f"h2d_bytes={pg.get('h2d_bytes')} d2h_bytes={pg.get('d2h_bytes')}", flush=True)
+    for c in paged["ckpts"]:
+        print(f"[uvm:paged] {card} ckpt step={c['step']} blocking_ms={c['blocking_ms']:.1f} "
+              f"persist_ms={c['persist_ms']:.1f} stall_ms={c['stall_ms']:.1f} "
+              f"synced={c['synced']}", flush=True)
+    w = paged["watch"]
+    print(f"[uvm:paged] {card} capacity={pcap} startup_s={paged['startup_s']:.1f} "
+          f"run_s={paged['run_s']:.1f} restarts={paged['restarts']} "
+          f"recoveries={paged['recoveries']} inline_managed_s={inline_s:.1f} "
+          f"(launches there: {inline_counts['chunk_digest']} chunk_digest, "
+          f"{inline_counts['flash_attention']} flash_attention) "
+          f"watched {w['samples']} times: app_with_context={w['app_contexts']} "
+          f"proxy_with_context={w['proxy_contexts']} "
+          f"step4_image_bitwise_equal_to_inline_managed={same_paged}", flush=True)
+    launches = sum(sy["phase_us"].get("digest_launches", 0) for sy in paged["syncs"])
+    flash = sum(sy["phase_us"].get("flash_launches", 0) for sy in paged["syncs"])
+    if paged["restarts"] != 1 or not paged["recoveries"] or paged["killed_pid"] is None:
+        raise SystemExit(f"paged proxy: restarts={paged['restarts']} "
+                         f"recoveries={paged['recoveries']}")
+    if paged["cuda_initialized"] or w["app_contexts"] or not w["proxy_contexts"]:
+        raise SystemExit(f"paged proxy: the application's CUDA context watch failed: "
+                         f"{paged['cuda_initialized']} {w}")
+    if [c["step"] for c in paged["ckpts"]] != [2, 4] or any(c["error"] for c in paged["ckpts"]):
+        raise SystemExit(f"paged proxy checkpoints: {paged['ckpts']}")
+    for sy in paged["syncs"]:
+        ph = sy["phase_us"]
+        if not sy.get("paging") or sy["paging"]["resident_high_water"] > pcap:
+            raise SystemExit(f"paged proxy SYNCED at step {sy['step']}: {sy.get('paging')}")
+        if ph.get("digest_launches") != ph.get("steps"):
+            raise SystemExit(f"paged proxy: {ph.get('digest_launches')} digest launches "
+                             f"for {ph.get('steps')} steps")
+    if not same_paged:
+        raise SystemExit("the paged proxy's step-4 image differs from the inline managed one")
+    return dict(out, launches_inline={"chunk_digest": counts["chunk_digest"],
+                                      "flash_attention": counts["flash_attention"]},
+                launches_proxy={"chunk_digest": launches, "flash_attention": flash})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--codec", default="none",
@@ -1051,12 +1415,17 @@ def main() -> int:
         del final_state
         served = phase_serve(store)
     rows = [phase_timing(device_state, launches)]
+    unmanaged6 = _cpu_tree(device_state)  # the [uvm] phase's reference
     del device_state
     rows.append(phase_flash_timing(served["launches"]))
     proxied = phase_proxy(card)
     # the proxy path's own count: the fused digest's launches in the proxy
     # processes, from their SYNCED frames (one per proxied step)
     rows[0]["launches_proxy"] = proxied["launches"]
+    uvm = phase_uvm(card, unmanaged6)
+    for row in rows:  # each kernel's launches on the managed paths
+        row["launches_uvm_inline"] = uvm["launches_inline"][row["name"]]
+        row["launches_uvm_proxy"] = uvm["launches_proxy"][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,6 +12,7 @@ from repro_torch.core.forked import (
     PersistJob,
     ThreadPersistBackend,
     list_persist_backends,
+    register_persist_backend,
 )
 from repro_torch.core.restore import LazyLeaves, RestoreManager
 from repro_torch.core.drain import drain
@@ -29,7 +30,7 @@ __all__ = [
     "ForkedCheckpointer", "CheckpointResult",
     "PersistBackend", "PersistJob",
     "ThreadPersistBackend", "ForkPersistBackend",
-    "list_persist_backends",
+    "list_persist_backends", "register_persist_backend",
     "LazyLeaves", "RestoreManager", "drain",
     "CheckpointPolicy", "referenced_steps",
     "HeartbeatMonitor", "RestartBudget", "StragglerPolicy",

@@ -518,6 +518,17 @@ _PERSIST_BACKENDS: dict[str, Callable[["ForkedCheckpointer"], PersistBackend]] =
 }
 
 
+def register_persist_backend(
+    name: str, factory: Callable[["ForkedCheckpointer"], PersistBackend],
+    *, replace: bool = False,
+) -> None:
+    """Plugin point: later scaling work (multi-host persist, remote object
+    stores, incremental GC offload) registers here."""
+    if name in _PERSIST_BACKENDS and not replace:
+        raise ValueError(f"persist backend {name!r} already registered")
+    _PERSIST_BACKENDS[name] = factory
+
+
 def list_persist_backends() -> list[str]:
     return sorted(_PERSIST_BACKENDS)
 
@@ -549,6 +560,7 @@ class ForkedCheckpointer:
         host: int = 0,
         fsync: bool = False,
         backend: str = "thread",
+        dirty_source: Any = None,
         timings: Timings | None = None,
     ):
         self.store = store
@@ -559,6 +571,11 @@ class ForkedCheckpointer:
         self.fsync = fsync
         self.io_workers = io_workers
         self.max_pending = max(1, int(max_pending))
+        # dirty_source: page-granular dirty history (a ManagedSpace adapter:
+        # tick() + dirty_chunk_marks_since(tick, chunk_bytes)). When set,
+        # phase 1 marks exactly the chunks written since THIS buffer's last
+        # sync — page-delta sync instead of whole-leaf digest scans.
+        self.dirty_source = dirty_source
         self.timings = timings or Timings()
         self._pending: list[CheckpointResult] = []
         self._prev_manifest: Manifest | None = None
@@ -578,6 +595,10 @@ class ForkedCheckpointer:
         # race for the buffer freed by the oldest pending checkpoint
         self._buf_cond = threading.Condition()
         self._buf_busy = [False] * len(self._buffers)
+        # per-buffer dirty-source watermark: buffer i's shadow content is
+        # current as of tick _buf_tick[i]; each buffer diffs against its OWN
+        # last sync (double buffering means buffers alternate checkpoints)
+        self._buf_tick = [-1] * len(self._buffers)
         # steps whose payload an in-flight (uncommitted) delta persist still
         # references — GC must not collect them out from under the child
         self._inflight_bases: dict[int, set[int]] = {}
@@ -586,22 +607,37 @@ class ForkedCheckpointer:
     def save_async(
         self, step: int, state: Any, *, meta: dict | None = None
     ) -> CheckpointResult:
-        """Phase 1 inline (blocking, fast); phase 2 on the persist backend."""
+        """Phase 1 inline (blocking, fast); phase 2 on the persist backend.
+
+        With a ``dirty_source``, phase 1 marks exactly the chunks written
+        since this buffer's last sync and fetches them without a digest
+        compare."""
         result = CheckpointResult(step=step, blocking_s=0.0)
         with self.timings.measure("ckpt/blocking") as _:
             t0 = time.perf_counter()
             # pick a free snapshot buffer (waits if all are persisting)
             buf_i = self._acquire_buffer()
             shadow = self._buffers[buf_i]
+            marks = None
+            now_tick = None
+            if self.dirty_source is not None:
+                # capture the tick BEFORE reading state: a write racing the
+                # capture lands after it and stays dirty for the next sync
+                now_tick = self.dirty_source.tick()
+                marks = self.dirty_source.dirty_chunk_marks_since(
+                    self._buf_tick[buf_i], self.chunk_bytes
+                )
             with self.timings.measure("ckpt/drain"):
                 drain(state)
             with self.timings.measure("ckpt/snapshot"):
-                shadow.mark_device_step()
+                shadow.mark_device_step(marks)
                 t_sync = time.perf_counter()
                 stats = shadow.sync(state)
                 result.sync_us = (time.perf_counter() - t_sync) * 1e6
             result.digest_us = stats.digest_us
             result.fetch_us = stats.fetch_us
+            if now_tick is not None:
+                self._buf_tick[buf_i] = now_tick
             skeleton = build_skeleton(state)
             shapes_dtypes = {
                 p: (leaf_shape(l), dtype_name(l))
@@ -723,3 +759,11 @@ class ForkedCheckpointer:
         for r in pending:
             r.done.wait()
         self.backend.close()
+
+    # -- synchronous baseline (the paper's "naive" strategy) -----------------------
+    def save_sync(self, step: int, state: Any, *, meta: dict | None = None) -> CheckpointResult:
+        """Naive strategy: the application blocks for the full write."""
+        r = self.save_async(step, state, meta=meta)
+        r.wait()
+        r.blocking_s += r.persist_s
+        return r

@@ -30,6 +30,11 @@ moves device -> table and ``upload`` table -> device, and a step program
 that digests its own output hands those digests to ``sync``
 (``device_digests``) so the boundary scans nothing.
 
+A managed space (``repro_torch.uvm``) replaces the conservative
+all-chunks mark with its page-granular write history
+(``mark_device_step(marks)``): the marked chunks are fetched without a
+digest compare, and fused digests, when given, narrow them further.
+
 Leaves are tensors (one shard each: the whole leaf) or host values (numpy
 arrays and scalars). Byte views of tensors come from
 ``t.reshape(-1).view(torch.uint8)`` (``utils.dtypes.byte_view``), because a
@@ -77,6 +82,10 @@ class _ShardStream:
     states: list[ChunkState]
     digests: list[int]                    # digest of current *shadow* content
     buffer: np.ndarray | None = None      # host shadow bytes (u8), lazily alloc'd
+    # True: the current DEVICE_DIRTY marks are page-granular truth (a
+    # managed space's write history), so the next sync fetches them
+    # without a digest compare
+    precise: bool = False
 
 
 @dataclass
@@ -273,19 +282,31 @@ class ShadowStateManager:
         self._registered = True
 
     # -- Algorithm-1 events -----------------------------------------------------
-    def mark_device_step(self) -> None:
+    def mark_device_step(self, marks: dict[str, list[int]] | None = None) -> None:
         """Paper: a CUDA call may mutate real pages -> mark shadows stale.
 
-        Every CLEAN chunk becomes DEVICE_DIRTY: any step may have touched
-        any byte, and the next sync's digest compare finds which did. (The
-        reference also takes page-granular marks from its managed-memory
-        space; that slice is not ported.)
+        Without ``marks`` every CLEAN chunk becomes DEVICE_DIRTY (the
+        conservative behaviour: any step may have touched any byte, and the
+        next sync's digest compare finds which did). With ``marks`` —
+        ``{path: chunk indices}`` from a managed space's page-granular
+        write history — a path present in the dict gets *exactly* those
+        chunks marked, flagged ``precise`` so the next sync fetches them
+        without a digest scan; paths absent from the dict (host-side leaves
+        outside the managed space) stay conservative.
         """
-        for s in self._streams.values():
-            s.states = [
-                ChunkState.DEVICE_DIRTY if st is ChunkState.CLEAN else st
-                for st in s.states
-            ]
+        for (path, _ordinal), s in self._streams.items():
+            idx = marks.get(path) if marks is not None else None
+            if idx is not None:
+                for i in idx:
+                    if 0 <= i < s.n_chunks and s.states[i] is ChunkState.CLEAN:
+                        s.states[i] = ChunkState.DEVICE_DIRTY
+                s.precise = True
+            else:
+                s.states = [
+                    ChunkState.DEVICE_DIRTY if st is ChunkState.CLEAN else st
+                    for st in s.states
+                ]
+                s.precise = False
 
     def mark_host_write(self, path: str) -> None:
         """Paper: write fault on a shadow page -> HOST_DIRTY."""
@@ -376,7 +397,7 @@ class ShadowStateManager:
             if stream.buffer is None:
                 if not self.defer_first_digests:
                     wanted.append((key, data))
-            elif ChunkState.DEVICE_DIRTY in stream.states:
+            elif not stream.precise and ChunkState.DEVICE_DIRTY in stream.states:
                 wanted.append((key, data))
         if not wanted:
             return {}
@@ -401,6 +422,7 @@ class ShadowStateManager:
         if stream.buffer is None:
             # first sync: everything must move regardless — bulk copy; the
             # digest pass is skipped when a persist phase will backfill it
+            stream.precise = False
             t0 = time.perf_counter()
             with self.timings.measure("shadow/fetch"):
                 stream.buffer = self._alloc_buffer(
@@ -428,16 +450,25 @@ class ShadowStateManager:
             i for i, st in enumerate(stream.states)
             if st is ChunkState.DEVICE_DIRTY
         ]
+        precise, stream.precise = stream.precise, False
         if not dirty:
             return stats
         if known is not None:
             # fused digests: the step already hashed the chunks, so the
-            # compare is bookkeeping (no digest time); shadow digests still
-            # unknown (a deferred first sync) count as changed
+            # compare is bookkeeping (no digest time) — and it composes
+            # with page-granular marks: only chunks both marked dirty AND
+            # hash-changed are fetched; shadow digests still unknown (a
+            # deferred first sync) count as changed
             dev_digests = known
             changed = [i for i in dirty
                        if stream.digests[i] < 0 or known[i] != stream.digests[i]]
             stats.chunks_prehashed += len(dirty)
+        elif precise:
+            # page-granular marks are authoritative: fetch exactly them, no
+            # digest scan over the (mostly clean) rest of the leaf — the
+            # whole point of the UVM dirty-bit integration
+            dev_digests = None
+            changed = dirty
         else:
             if dev_digests is None:
                 dev_digests = self._host_digests(data, stream, stats)
@@ -458,7 +489,8 @@ class ShadowStateManager:
             if len(changed) == stream.n_chunks:
                 # everything dirty (first sync / full update): one bulk copy
                 _copy_bytes(stream.buffer, data)
-                stream.digests = list(dev_digests)
+                stream.digests = (list(dev_digests) if dev_digests is not None
+                                  else self._fetched_digests(stream, changed))
                 stream.states = [ChunkState.CLEAN] * stream.n_chunks
                 stats.chunks_fetched = stream.n_chunks
                 stats.bytes_fetched = stream.nbytes
@@ -468,12 +500,28 @@ class ShadowStateManager:
             for i in changed:
                 lo, hi = i * cb, min(stream.nbytes, (i + 1) * cb)
                 fetch(lo, hi)
-                stream.digests[i] = dev_digests[i]
                 stream.states[i] = ChunkState.CLEAN
                 stats.chunks_fetched += 1
                 stats.bytes_fetched += hi - lo
+            new = (dev_digests if dev_digests is not None
+                   else dict(zip(changed, self._fetched_digests(stream, changed))))
+            for i in changed:
+                stream.digests[i] = new[i]
         stats.fetch_us += (time.perf_counter() - t_fetch) * 1e6
         return stats
+
+    def _fetched_digests(self, stream: _ShardStream, changed: list[int]) -> list[int]:
+        """Shadow digests of chunks a precise sync fetched without a
+        compare: hashed from the shadow bytes with ``chunk_digest_np``, as
+        the reference does — or, when a persist phase backfills digests
+        (``defer_first_digests``), left to it (-2) as a first sync leaves
+        them, so the blocking phase hashes nothing."""
+        if self.defer_first_digests:
+            return [-2] * len(changed)
+        cb = self.chunk_bytes
+        with self.timings.measure("shadow/digest"):
+            return [chunk_digest_np(stream.buffer[i * cb : min(stream.nbytes, (i + 1) * cb)])
+                    for i in changed]
 
     def _make_chunk_fetcher(self, data: Any, stream: _ShardStream, changed: list[int]):
         """Per-chunk device->host fetch into the shadow buffer: only dirty

@@ -23,8 +23,15 @@ spec, the app holds only the host mirror and never touches the card, and
 boundary. A killed proxy is respawned and its API log replayed
 transparently mid-``run()``.
 
-Managed memory (``device_capacity_bytes``) comes with a later slice of the
-port and raises here.
+Managed-memory axis (``device_capacity_bytes=``): when set, the device
+state lives in a ``repro_torch.uvm.ManagedSpace`` — host backing plus a
+bounded arena of page frames on ``device`` — so training states *larger
+than the device budget* work: each step faults its working set in
+(evicting and writing back under pressure), computes on the assembled card
+tensors and write-allocates the results back, and the checkpointer
+consumes the space's page-granular dirty history (page-delta sync instead
+of whole-leaf digest scans). In proxy mode the budget applies inside the
+proxy process instead.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import time
 from typing import Any, Callable, Iterator
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.codecs import DEFAULT_CODEC
 from repro_torch.checkpoint.store import ChunkStore
@@ -62,21 +70,33 @@ class CheckpointedTrainer:
         program: dict | None = None,
         proxy_opts: dict | None = None,
         device_capacity_bytes: int | None = None,
+        page_bytes: int | None = None,
+        eviction_policy: str = "lru",
+        promote_threshold: int = 0,
+        promote_window: int = 0,
+        device: str | torch.device = "cuda",
         timings: Timings | None = None,
     ):
+        """``device`` is where an inline managed space keeps its frames
+        (the card unless the caller asks for the CPU)."""
         if device_runner not in DEVICE_RUNNERS:
             raise ValueError(
                 f"unknown device_runner {device_runner!r}; have {DEVICE_RUNNERS}"
-            )
-        if device_capacity_bytes:
-            raise NotImplementedError(
-                "managed-memory (UVM) training is not ported to PyTorch yet"
             )
         self.train_step = train_step
         self.device_runner = device_runner
         self.store = ChunkStore(store_root)
         self.policy = policy or CheckpointPolicy(interval_steps=100)
         self.timings = timings or Timings()
+        self.device_capacity_bytes = (
+            int(device_capacity_bytes) if device_capacity_bytes else None
+        )
+        self.page_bytes = page_bytes
+        self.eviction_policy = eviction_policy
+        self.promote_threshold = int(promote_threshold)
+        self.promote_window = int(promote_window)
+        self.device = device
+        self.space = None  # ManagedSpace, created on first run() when capped
         self.checkpointer = ForkedCheckpointer(
             self.store,
             codec=codec,
@@ -95,9 +115,39 @@ class CheckpointedTrainer:
                 raise ValueError("device_runner='proxy' needs a program spec")
             from repro_torch.proxy import ProxyRunner
 
-            self.runner = ProxyRunner(
-                program, chunk_bytes=chunk_bytes, **dict(proxy_opts or {})
+            popts = dict(proxy_opts or {})
+            if self.device_capacity_bytes is not None:
+                # the budget applies where the device state lives: inside
+                # the proxy process
+                popts.setdefault(
+                    "device_capacity_bytes", self.device_capacity_bytes
+                )
+                if page_bytes is not None:
+                    popts.setdefault("page_bytes", int(page_bytes))
+                popts.setdefault("eviction_policy", eviction_policy)
+                popts.setdefault("promote_threshold", self.promote_threshold)
+                popts.setdefault("promote_window", self.promote_window)
+            self.runner = ProxyRunner(program, chunk_bytes=chunk_bytes, **popts)
+
+    # -- managed memory -----------------------------------------------------------
+    def _ensure_space(self, device_state: Any) -> None:
+        """Back ``device_state`` with a ManagedSpace (inline managed mode)
+        and hand its dirty history to the checkpointer."""
+        from repro_torch.uvm import DEFAULT_PAGE_BYTES, ManagedSpace
+
+        if self.space is None:
+            self.space = ManagedSpace(
+                self.device_capacity_bytes,
+                page_bytes=self.page_bytes or DEFAULT_PAGE_BYTES,
+                eviction_policy=self.eviction_policy,
+                promote_threshold=self.promote_threshold,
+                promote_window=self.promote_window,
+                device=self.device,
             )
+        self.space.register(device_state)
+        # state["device"] leaves appear under the "device/" prefix in the
+        # checkpointed tree; marks must use those paths
+        self.checkpointer.dirty_source = self.space.as_dirty_source("device/")
 
     # -- restart ----------------------------------------------------------------
     def resume_or(
@@ -110,8 +160,10 @@ class CheckpointedTrainer:
         """Restore the newest committed state or build a fresh one.
 
         ``device_for(path, shape)`` names the device each restored leaf goes
-        to (None keeps it on the host). In proxy mode the (restored or
-        fresh) device state is pushed into a freshly-started proxy instead —
+        to (None keeps it on the host); in inline managed mode the device
+        leaves come back as CPU tensors for the space's host backing. In
+        proxy mode the (restored or fresh) device state is pushed into a
+        freshly-started proxy instead —
         the paper's restart protocol of replaying allocations and
         transferring data back through the proxy — and ``state["device"]``
         is its host mirror. Returns (state, start_step).
@@ -130,6 +182,15 @@ class CheckpointedTrainer:
                 self.runner, step=steps[-1], device_for=device_for, verify=verify
             )
         else:
+            if self.device_capacity_bytes is not None:
+                # managed: the device leaves land in the space's host
+                # backing, so they come back as CPU tensors (not onto the
+                # card and back, and never as numpy: the step takes tensors)
+                place = device_for or (lambda p, s: None)
+
+                def device_for(path, shape, place=place):
+                    return "cpu" if path.startswith("device/") else place(path, shape)
+
             state, _manifest = self.restorer.restore(
                 step=steps[-1], device_for=device_for, verify=verify
             )
@@ -164,13 +225,27 @@ class CheckpointedTrainer:
             )
         if batches is None:
             raise ValueError("inline device runner needs a batches iterator")
+        managed = self.device_capacity_bytes is not None
+        if managed:
+            self._ensure_space(state["device"])
         step = start_step
         tr = obs_trace.get()
         for _ in range(num_steps):
             batch = next(batches)
             t0 = time.perf_counter() if tr is not None else 0.0
             with self.timings.measure("train/step"):
-                state["device"], metrics = self.train_step(state["device"], batch)
+                if managed:
+                    # device access: fault the working set in under the
+                    # budget, compute, write-allocate the results back
+                    with self.timings.measure("train/page_in"):
+                        dev = self.space.read_state()
+                    dev, metrics = self.train_step(dev, batch)
+                    with self.timings.measure("train/page_out"):
+                        self.space.write_state(dev)
+                else:
+                    state["device"], metrics = self.train_step(
+                        state["device"], batch
+                    )
             step += 1
             if tr is not None:
                 tr.complete("app.step", t0, step=step)
@@ -178,9 +253,14 @@ class CheckpointedTrainer:
             if on_metrics is not None:
                 on_metrics(step, metrics)
             if self.policy.should_checkpoint(step):
+                if managed:
+                    # coherent host view, no migrations: the sync source
+                    state["device"] = self.space.peek_state()
                 self.checkpoint_now(step, state)
             if stop is not None and stop():
                 break
+        if managed:
+            state["device"] = self.space.peek_state()
         return state
 
     def _run_proxied(
@@ -271,6 +351,18 @@ class CheckpointedTrainer:
         r.stall_us = float(info.get("stall_us", 0.0))
         return boundary
 
+    def materialize(self, state: Any) -> Any:
+        """Refresh ``state["device"]`` from the managed space (no-op when
+        unmanaged). Callers outside :meth:`run` — preemption handlers, the
+        launch CLI — use this before ``checkpoint_now``."""
+        if self.space is not None:
+            state["device"] = self.space.peek_state()
+        return state
+
+    def paging_stats(self) -> dict | None:
+        """The managed space's fault/eviction/migration counters."""
+        return self.space.stats_dict() if self.space is not None else None
+
     def checkpoint_now(self, step: int, state: Any) -> CheckpointResult:
         r = self.checkpointer.save_async(step, state, meta={"wall": time.time()})
         self.results.append(r)
@@ -299,6 +391,8 @@ class CheckpointedTrainer:
         if self.runner is not None:
             self.runner.close()
         self._gc()  # in-flight persists have committed by now
+        if self.space is not None:
+            obs_metrics.absorb_paging(self.space.stats_dict())
         obs_metrics.dump_if_enabled("app")
         return list(self.results)
 

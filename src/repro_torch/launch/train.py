@@ -1,13 +1,16 @@
 """End-to-end training entry point with CRUM fault tolerance (PyTorch port).
 
-The reference's ``launch/train.py`` with its inline and proxy runners and
-their flags, plus ``--device`` (default ``cuda``; it raises when there is
-no card, and the CPU runs only when asked for). With ``--device-runner
-proxy`` this process never touches the device: a ``train_arch`` step
-program runs in a supervised proxy process that owns the card, and this
-process keeps the host mirror and checkpoints it. The flags of unported
-modes (``--device-capacity``, ``--production-mesh``) raise; the
-managed-memory tuning flags are left out until that mode is ported. The
+The reference's ``launch/train.py`` with its inline and proxy runners,
+managed memory and their flags, plus ``--device`` (default ``cuda``; it
+raises when there is no card, and the CPU runs only when asked for). With
+``--device-runner proxy`` this process never touches the device: a
+``train_arch`` step program runs in a supervised proxy process that owns
+the card, and this process keeps the host mirror and checkpoints it. With
+``--device-capacity BYTES|PCT%`` the device state lives in a paged managed
+space whose frames on the device hold at most that many bytes (a
+percentage is of the state's size): every step faults the state in,
+evicting and writing back under the budget, and the checkpointer syncs
+page deltas. ``--production-mesh`` raises: not ported. The
 CheckpointedTrainer provides forked checkpointing, incremental persistence
 and restart: re-running the same command resumes from the newest
 committed step.
@@ -20,6 +23,9 @@ committed step.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --smoke --steps 6 --batch 4 --seq 32 --ckpt-every 2 \\
         --device-runner proxy --device cpu --ckpt-dir /tmp/ck-proxy
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+        --smoke --steps 6 --batch 4 --seq 32 --ckpt-every 2 \\
+        --device-capacity 50% --device cpu --ckpt-dir /tmp/ck-uvm
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ from repro_torch.models import ModelConfig, build
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import get_optimizer, warmup_cosine
 from repro_torch.runtime.steps import batch_to_device, make_train_step
+from repro_torch.utils.dtypes import leaf_nbytes
+from repro_torch.utils.tree import flatten_with_paths
 
 
 def resolve_device(name: str) -> torch.device:
@@ -126,8 +134,25 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="inline: step fn runs in-process; proxy: in a restartable "
              "proxy process that owns the device (this one stays device-clean)",
     )
-    ap.add_argument("--device-capacity", default=None, metavar="BYTES|PCT%",
-                    help="managed-memory (UVM) mode: not ported yet")
+    ap.add_argument(
+        "--device-capacity", default=None, metavar="BYTES|PCT%",
+        help="managed-memory (UVM) mode: hard device budget for the model "
+             "state, either absolute bytes or a percentage of the state "
+             "size (e.g. '50%%' = oversubscription ratio 2x). Pages "
+             "migrate on fault; the checkpointer syncs page deltas",
+    )
+    ap.add_argument("--page-bytes", type=int, default=None,
+                    help="managed-memory page size (default 64 KiB)")
+    ap.add_argument("--eviction-policy", choices=["lru", "clock"],
+                    default="lru", help="managed-memory eviction policy")
+    ap.add_argument("--promote-threshold", type=int, default=0,
+                    help="Volta-style access-counter promotion: a HOST page "
+                         "read this many times within --promote-window is "
+                         "migrated to device; colder reads are served "
+                         "remotely without a migration (0/1 = migrate on "
+                         "first touch)")
+    ap.add_argument("--promote-window", type=int, default=0,
+                    help="promotion counting window in ticks (0 = unbounded)")
     ap.add_argument("--no-incremental", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
                     help="multi-device mesh: not ported yet")
@@ -144,8 +169,6 @@ def train(argv=None) -> dict:
     """Run the CLI. Returns the final step, the checkpoint results, the final
     state, the last step's metrics and the phase timings."""
     args = parse_args(argv)
-    if args.device_capacity is not None:
-        raise NotImplementedError("--device-capacity (UVM) is not ported yet")
     if args.production_mesh:
         raise NotImplementedError("--production-mesh is not ported yet")
     if args.device_runner == "proxy":
@@ -172,6 +195,11 @@ def train(argv=None) -> dict:
         incremental=not args.no_incremental,
         chunk_bytes=1 << 20,
         backend=args.backend,
+        page_bytes=args.page_bytes,
+        eviction_policy=args.eviction_policy,
+        promote_threshold=args.promote_threshold,
+        promote_window=args.promote_window,
+        device=device,
     )
     preempt = PreemptionHandler(trainer.policy).install()
     try:
@@ -181,6 +209,8 @@ def train(argv=None) -> dict:
         )
         print(f"[train] arch={cfg.name} layers={cfg.num_layers} "
               f"start_step={start} device={device}", flush=True)
+        if args.device_capacity is not None:
+            return _run_managed(args, trainer, run, state, start, data, preempt)
 
         tr = obs_trace.get()
         step = start
@@ -228,6 +258,67 @@ def train(argv=None) -> dict:
             "timings": trainer.timings.summary()}
 
 
+def _tree_nbytes(tree) -> int:
+    flat, _ = flatten_with_paths(tree)
+    return sum(leaf_nbytes(leaf) for leaf in flat.values())
+
+
+def _resolve_capacity(spec: str, state_nbytes: int) -> int:
+    """'BYTES' or 'PCT%' (of the device state size) -> absolute bytes."""
+    s = str(spec).strip()
+    if s.endswith("%"):
+        return max(1, int(state_nbytes * float(s[:-1]) / 100.0))
+    return int(s)
+
+
+def _run_managed(args, trainer, run: Training, state, start, data, preempt) -> dict:
+    """Inline training through a ManagedSpace (the UVM oversubscription
+    path): the device budget is hard, pages migrate on fault, and the
+    checkpointer syncs page deltas instead of digest-scanning every leaf."""
+    state_nbytes = _tree_nbytes(state["device"])
+    cap = _resolve_capacity(args.device_capacity, state_nbytes)
+    trainer.device_capacity_bytes = cap
+    print(f"[uvm] device_capacity={cap}B state={state_nbytes}B "
+          f"oversubscription=x{state_nbytes / cap:.2f} "
+          f"policy={args.eviction_policy} device={run.device}", flush=True)
+
+    def batches():
+        while True:
+            yield batch_to_device(next(data), run.device)
+
+    last: dict = {}
+
+    def on_metrics(step, metrics):
+        state["host"]["data"] = data.state()
+        last.clear()
+        last.update(metrics)
+        if step % args.log_every == 0 or step == args.steps:
+            print(f"[train] step={step} loss={float(metrics['loss']):.4f} "
+                  f"grad_norm={float(metrics['grad_norm']):.3f}", flush=True)
+
+    state = trainer.run(
+        state, batches(), num_steps=args.steps - start, start_step=start,
+        on_metrics=on_metrics, stop=preempt.received.is_set,
+    )
+    step = int(np.asarray(state["host"]["step"]))
+    if preempt.received.is_set() and _needs_preempt_ckpt(trainer, step):
+        print("[train] preemption: checkpointing and exiting", flush=True)
+        trainer.checkpoint_now(step, trainer.materialize(state))
+    done = trainer.finish()
+    for r in done:
+        print(
+            f"[ckpt-done] step={r.step} blocking={r.blocking_s*1e3:.1f}ms "
+            f"persist={r.persist_s*1e3:.1f}ms synced={r.chunks_synced} "
+            f"clean={r.chunks_clean} written={r.chunks_written} "
+            f"reused={r.chunks_reused}",
+            flush=True,
+        )
+    return {"final_step": step, "results": done, "state": state,
+            "metrics": {k: float(v) for k, v in last.items()},
+            "timings": trainer.timings.summary(),
+            "paging": trainer.paging_stats()}
+
+
 def _train_proxy(args: argparse.Namespace) -> dict:
     """The paper's architecture: this process never runs the step function.
 
@@ -252,6 +343,21 @@ def _train_proxy(args: argparse.Namespace) -> dict:
     }
     if args.obs_dir:
         obs_trace.enable(args.obs_dir, "app")
+    capacity = None
+    if args.device_capacity is not None:
+        spec = str(args.device_capacity).strip()
+        if spec.endswith("%"):
+            # percentage of the program's device state, sized on the meta
+            # device: this process never materializes the state it keeps
+            # out of its own process
+            from repro_torch.proxy.programs import make_program
+
+            nbytes = make_program(program).state_nbytes()
+            capacity = _resolve_capacity(spec, nbytes)
+            print(f"[uvm] proxy device_capacity={capacity}B "
+                  f"state={nbytes}B", flush=True)
+        else:
+            capacity = int(spec)
     trainer = CheckpointedTrainer(
         None,
         store_root=args.ckpt_dir,
@@ -262,6 +368,11 @@ def _train_proxy(args: argparse.Namespace) -> dict:
         backend=args.backend,
         device_runner="proxy",
         program=program,
+        device_capacity_bytes=capacity,
+        page_bytes=args.page_bytes,
+        eviction_policy=args.eviction_policy,
+        promote_threshold=args.promote_threshold,
+        promote_window=args.promote_window,
     )
     preempt = PreemptionHandler(trainer.policy).install()
     metrics: dict = {}
@@ -316,8 +427,11 @@ def _needs_preempt_ckpt(trainer, step: int) -> bool:
 
 def main(argv=None) -> int:
     out = train(argv)
-    print(json.dumps({"final_step": out["final_step"],
-                      "timings": out["timings"]}, indent=2))
+    final = {"final_step": out["final_step"]}
+    if out.get("paging") is not None:
+        final["paging"] = out["paging"]
+    final["timings"] = out["timings"]
+    print(json.dumps(final, indent=2))
     return 0
 
 

@@ -248,16 +248,21 @@ class TorchTiny(TorchTrain):
 class TrainArch(TorchTrain):
     """A real architecture from ``repro_torch.configs`` with AdamW on
     ``warmup_cosine(lr, 10, total_steps)`` — what ``launch/train.py
-    --device-runner proxy`` ships to its proxy instead of a closure."""
+    --device-runner proxy`` ships to its proxy instead of a closure.
+    ``num_layers`` cuts the config's depth and keeps its widths."""
 
     def __init__(self, *, arch: str, smoke: bool = True, batch: int = 8,
                  seq: int = 128, lr: float = 3e-4, total_steps: int = 100,
-                 seed: int = 0, device: str = "cuda"):
+                 seed: int = 0, device: str = "cuda", num_layers: int | None = None):
+        import dataclasses
+
         from repro_torch.configs import get_config
         from repro_torch.optim import warmup_cosine
 
-        super().__init__(get_config(arch, smoke=smoke),
-                         warmup_cosine(lr, 10, total_steps),
+        cfg = get_config(arch, smoke=smoke)
+        if num_layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=int(num_layers))
+        super().__init__(cfg, warmup_cosine(lr, 10, total_steps),
                          batch=batch, seq=seq, seed=seed, device=device)
 
 

@@ -22,11 +22,12 @@ Application -> proxy::
     REGISTER  {layout, chunk_bytes,  attach the data plane; allocate device
                transport?,           state. ``transport`` is ``"segment"``
                workdir?, zdict?,     (shared MAP_SHARED files, needs
-               fused_digests?}       ``workdir``) or ``"stream"`` (payloads
-                                     travel as CHUNKS frames over this
-                                     connection). ``device_capacity_bytes``
-                                     (managed memory) is refused: not
-                                     ported yet
+               fused_digests?,       ``workdir``) or ``"stream"`` (payloads
+               device_capacity_bytes?, travel as CHUNKS frames over this
+               page_bytes?,          connection). ``device_capacity_bytes``
+               eviction_policy?,     hosts the device state in a paged
+               promote_threshold?,   ``repro_torch.uvm.ManagedSpace`` under
+               promote_window?}      that budget (managed memory)
     UPLOAD    {paths, step, chunks?, ingest data-plane bytes into device
                n_frames?}            state. ``chunks`` ({path: [chunk
                                      indices]}) is the delta form: only
@@ -54,14 +55,19 @@ Proxy -> application::
     CHUNKS    {codec, items, data}   streamed transport: dirty-chunk
                                      payload of the in-progress SYNC
     SYNCED    {step, digest, metrics, chunks_synced, bytes_synced,
-               epoch?, phase_us?, chunk_digests?, wire_bytes?}
+               epoch?, phase_us?, chunk_digests?, wire_bytes?, paging?}
+                                     ``paging``: a managed proxy's
+                                     ``ManagedSpace.stats_dict()``;
                                      ``phase_us`` breaks the window down
                                      ({step, steps, digest, fetch, sync,
-                                     state_digest} microseconds,
-                                     ``prehashed_chunks``,
-                                     and ``digest_launches``: the
-                                     ``chunk_digest`` kernel launches the
-                                     window's steps made)
+                                     state_digest} microseconds, with
+                                     page_in, page_out and peek for a
+                                     managed proxy; ``prehashed_chunks``;
+                                     ``digest_launches`` and
+                                     ``flash_launches``: the
+                                     ``chunk_digest`` and
+                                     ``flash_attention`` kernel launches
+                                     the window's steps made)
 
 STEP carrying no reply is the proxying economy the paper measures: the app
 runs ahead of the proxy exactly like PyTorch's asynchronous launches run

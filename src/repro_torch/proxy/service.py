@@ -13,6 +13,12 @@ gives
                 device tensors in place — the replay data-push primitive
                 after a respawn or restore.
 
+A REGISTER with ``device_capacity_bytes`` hosts the device state in a
+paged ``repro_torch.uvm.ManagedSpace`` on the program's device instead:
+STEP faults the state in, steps and writes it back; SYNC marks exactly the
+chunks the space saw written since the last SYNC and fetches them from the
+space's coherent host view; a chunk-delta UPLOAD splices only its ranges.
+
 The data plane is a transport decision made at REGISTER time
 (``repro_torch.remote.transport``): ``segment`` attaches the app's
 MAP_SHARED files (local, zero-copy); ``stream`` keeps a private table and
@@ -94,6 +100,14 @@ class ProxyService:
         self.transport = "segment"
         self.shadow = None
         self.dstate: Any = None
+        # managed-memory mode (REGISTER with device_capacity_bytes): the
+        # device state lives in a ManagedSpace under a hard frame budget —
+        # the proxy can host a state larger than its device budget, and
+        # sync fetches page deltas instead of digest-scanning every leaf
+        self.space = None
+        self._space_sync_tick = -1
+        self._win_page_us = [0.0, 0.0]  # (page-in, page-out) this window
+        self._win_flash = 0  # flash_attention launches this window
         self.last_step = 0
         self.last_metrics: dict = {}
         # fused digesting (REGISTER fused_digests=True): every STEP ends
@@ -172,8 +186,24 @@ class ProxyService:
         return self.program.step(dstate, step)
 
     def _on_step(self, msg: dict) -> None:
+        from repro_torch.kernels.flash_attention import flash_attention
+
         t0 = time.perf_counter()
-        self.dstate, self.last_metrics = self._step_fn(self.dstate, int(msg["step"]))
+        flash_before = flash_attention.launches
+        if self.space is not None:
+            # device access through the pager: fault the working set in
+            # under the budget, step, write-allocate the results back
+            dstate = self.space.read_state()
+            t1 = time.perf_counter()
+            dstate, self.last_metrics = self._step_fn(dstate, int(msg["step"]))
+            t2 = time.perf_counter()
+            self.space.write_state(dstate)
+            self._win_page_us[0] += (t1 - t0) * 1e6
+            self._win_page_us[1] += (time.perf_counter() - t2) * 1e6
+        else:
+            self.dstate, self.last_metrics = self._step_fn(
+                self.dstate, int(msg["step"]))
+        self._win_flash += flash_attention.launches - flash_before
         self._win_warm_up |= not self._stepped
         self._stepped = True
         self.last_step = int(msg["step"])
@@ -196,9 +226,20 @@ class ProxyService:
         from repro_torch.core.shadow import ShadowStateManager
         from repro_torch.remote.transport import make_proxy_table
 
-        if msg.get("device_capacity_bytes"):
-            raise NotImplementedError(
-                "managed-memory (UVM) proxy state is not ported to PyTorch yet"
+        capacity = msg.get("device_capacity_bytes")
+        space = None
+        if capacity:
+            # built first: a budget below one page is refused before the
+            # data plane is attached
+            from repro_torch.uvm import DEFAULT_PAGE_BYTES, ManagedSpace
+
+            space = ManagedSpace(
+                int(capacity),
+                page_bytes=int(msg.get("page_bytes") or DEFAULT_PAGE_BYTES),
+                eviction_policy=msg.get("eviction_policy") or "lru",
+                promote_threshold=int(msg.get("promote_threshold") or 0),
+                promote_window=int(msg.get("promote_window") or 0),
+                device=getattr(self.program, "device", "cpu"),
             )
         obs = msg.get("obs") or {}
         self._obs_inc = int(obs.get("inc") or 0)
@@ -221,8 +262,19 @@ class ProxyService:
             segment_factory=self.table.factory,
         )
         # the program defines the structure; the upload fills the content
-        self.dstate = self.program.empty_state()
-        self.shadow.register(self.dstate)
+        if space is not None:
+            # shapes and dtypes only: the space's host backing starts zero
+            # and the upload fills it
+            meta = getattr(self.program, "meta_state", self.program.empty_state)()
+            space.register(meta)
+            self.space = space
+            self._space_sync_tick = -1
+            self.dstate = None  # authoritative bytes live in the space
+            self.shadow.register(meta)
+        else:
+            self.space = None
+            self.dstate = self.program.empty_state()
+            self.shadow.register(self.dstate)
         self.last_step = 0
         self.conn.send(MSG_OK, op=MSG_REGISTER)
 
@@ -243,6 +295,22 @@ class ProxyService:
         # last step emitted no longer describe the state
         self._last_digests = None
         chunks = msg.get("chunks")
+        if self.space is not None and chunks is not None:
+            self._delta_upload_into_space(msg, chunks)
+            tr = obs_trace.get()
+            if tr is not None:
+                tr.complete("proxy.upload", t0, step=self.last_step,
+                            inc=self._obs_inc, delta=True,
+                            **obs_trace.ctx_args(msg.get("ctx")))
+            return
+        state = self.dstate
+        if self.space is not None:
+            # every leaf is rebuilt from the table, so the targets need no
+            # content: fresh tensors on the program's device, where the
+            # upload digests them (one grouped kernel call on the card);
+            # a partial upload patches the space's coherent view
+            state = (self.program.empty_state() if msg.get("paths") is None
+                     else self.space.peek_state())
         if chunks is not None:
             # delta form: only the listed chunk ranges are stale
             for p, idxs in chunks.items():
@@ -252,11 +320,15 @@ class ProxyService:
             if paths is None:
                 from repro_torch.utils.tree import flatten_with_paths
 
-                paths = list(flatten_with_paths(self.dstate)[0])
+                paths = list(flatten_with_paths(state)[0])
             for p in paths:
                 self.shadow.mark_host_write(p)
-        state, stats = self.shadow.upload(self.dstate)
-        self.dstate = self.program.on_restore(state)
+        state, stats = self.shadow.upload(state)
+        state = self.program.on_restore(state)
+        if self.space is not None:
+            self.space.load_state(state)
+        else:
+            self.dstate = state
         self.last_step = int(msg.get("step", self.last_step))
         self.conn.send(
             MSG_OK,
@@ -271,6 +343,39 @@ class ProxyService:
                         bytes_uploaded=stats.bytes_uploaded,
                         **obs_trace.ctx_args(msg.get("ctx")))
 
+    def _delta_upload_into_space(self, msg: dict, chunks: dict) -> None:
+        """Chunk-delta upload into a paged device: splice ONLY the uploaded
+        byte ranges into the managed space, so untouched pages keep their
+        write history and the next page-delta SYNC stays a delta.
+
+        No ``on_restore`` here: a delta targets a live, already-adapted
+        state and is bytes-identical by construction (the full-upload path
+        keeps the adaptation hook).
+        """
+        from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
+
+        cb = self.shadow.chunk_bytes
+        touched = {}
+        for p, idxs in chunks.items():
+            self.shadow.mark_host_chunks(p, [int(i) for i in idxs])
+            # a flat {full-path: leaf} dict flattens back to the same path
+            # strings, so the shadow finds its streams
+            touched[p] = self.space.peek_leaf(p)
+        patched, stats = self.shadow.upload(touched)
+        flat, _ = flatten_with_paths(patched)
+        for p, leaf in flat.items():
+            raw = leaf_bytes(leaf)
+            for i in sorted(int(i) for i in chunks[p]):
+                lo, hi = i * cb, min(raw.nbytes, (i + 1) * cb)
+                self.space.load_range(p, lo, raw[lo:hi])
+        self.last_step = int(msg.get("step", self.last_step))
+        self.conn.send(
+            MSG_OK,
+            op=MSG_UPLOAD,
+            bytes_uploaded=stats.bytes_uploaded,
+            chunks_uploaded=stats.chunks_uploaded,
+        )
+
     def _on_sync(self, msg: dict | None = None) -> None:
         from repro_torch.utils.tree import tree_digest
 
@@ -281,8 +386,24 @@ class ProxyService:
         # exactly the boundary this (pipeline-ordered) SYNC captures
         device_digests = self._last_digests if self.fused_digests else None
         fields: dict[str, Any] = {}
-        self.shadow.mark_device_step()
-        stats = self.shadow.sync(self.dstate, device_digests=device_digests)
+        if self.space is not None:
+            # page-delta sync: mark exactly the chunks written since the
+            # last SYNC (the space's write-tick history), captured before
+            # the peek so nothing can fall between
+            tick = self.space.tick()
+            marks = self.space.dirty_chunk_marks_since(
+                self._space_sync_tick, self.shadow.chunk_bytes
+            )
+            t_peek = time.perf_counter()
+            state = self.space.peek_state()
+            peek_us = (time.perf_counter() - t_peek) * 1e6
+            self.shadow.mark_device_step(marks)
+            stats = self.shadow.sync(state, device_digests=device_digests)
+            self._space_sync_tick = tick
+            fields["paging"] = self.space.stats_dict()
+        else:
+            self.shadow.mark_device_step()
+            stats = self.shadow.sync(self.dstate, device_digests=device_digests)
         if self.transport == "stream":
             # the app side cannot see this table: ship exactly the chunks
             # this sync materialized as CHUNKS frames ahead of the SYNCED
@@ -340,10 +461,18 @@ class ProxyService:
             "state_digest": round((time.perf_counter() - t_digest) * 1e6, 1),
             "prehashed_chunks": stats.chunks_prehashed,
             "digest_launches": self._win_launches,
+            "flash_launches": self._win_flash,
         }
+        if self.space is not None:
+            fields["phase_us"].update(
+                page_in=round(self._win_page_us[0], 1),
+                page_out=round(self._win_page_us[1], 1),
+                peek=round(peek_us, 1))
+            self._win_page_us = [0.0, 0.0]
         self._win_step_us = []
         self._win_warm_up = False
         self._win_launches = 0
+        self._win_flash = 0
         self.conn.send(
             MSG_SYNCED,
             step=self.last_step,

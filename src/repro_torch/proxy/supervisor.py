@@ -74,15 +74,33 @@ class ProxyRunner:
         fused_digests: bool = False,
         endpoint_provider: Callable[..., tuple[str, int]] | None = None,
         device_capacity_bytes: int | None = None,
+        page_bytes: int | None = None,
+        eviction_policy: str = "lru",
+        promote_threshold: int = 0,
+        promote_window: int = 0,
         max_restarts: int = 3,
         max_pipeline: int = 64,
         sync_timeout_s: float = 120.0,
         op_timeout_s: float = 120.0,
     ):
-        if device_capacity_bytes:
-            raise NotImplementedError(
-                "managed-memory (UVM) proxy state is not ported to PyTorch yet"
-            )
+        # managed-memory mode: the proxy hosts its device state in a paged
+        # ManagedSpace under this budget (REGISTER carries the fields)
+        self.device_capacity_bytes = (
+            int(device_capacity_bytes) if device_capacity_bytes else None
+        )
+        self.page_bytes = page_bytes
+        if self.device_capacity_bytes is not None:
+            from repro_torch.uvm import DEFAULT_PAGE_BYTES
+
+            pb = int(page_bytes or DEFAULT_PAGE_BYTES)
+            if self.device_capacity_bytes < pb:
+                raise ValueError(
+                    f"device capacity {self.device_capacity_bytes}B is smaller "
+                    f"than one page ({pb}B) — nothing could ever be resident"
+                )
+        self.eviction_policy = eviction_policy
+        self.promote_threshold = int(promote_threshold)
+        self.promote_window = int(promote_window)
         self.program_spec = dict(program_spec)
         self.chunk_bytes = int(chunk_bytes)
         self.transport_kind = transport
@@ -135,6 +153,16 @@ class ProxyRunner:
         # to the pre-ctx wire format.
         self.trace_ctx: dict | None = None
 
+    def _paging_fields(self) -> dict[str, Any]:
+        """REGISTER's managed-memory fields (the reference's names)."""
+        return {
+            "device_capacity_bytes": self.device_capacity_bytes,
+            "page_bytes": self.page_bytes,
+            "eviction_policy": self.eviction_policy,
+            "promote_threshold": self.promote_threshold,
+            "promote_window": self.promote_window,
+        }
+
     def _frame_ctx(self) -> dict | None:
         """A child context for one outgoing frame (None when untraced)."""
         if self.trace_ctx is None:
@@ -180,6 +208,7 @@ class ProxyRunner:
             "call": "register",
             **self.transport.register_fields(),
             "chunk_bytes": self.chunk_bytes,
+            **self._paging_fields(),
             "fused_digests": self.fused_digests,
         })
         self.log.append({"call": "upload", "step": int(base_step), "paths": None})
@@ -394,12 +423,12 @@ class ProxyRunner:
             "transport": self.transport.stats(),
         }
         for key in (
-            "wire_bytes", "raw_bytes", "phase_us", "chunk_digests",
+            "wire_bytes", "raw_bytes", "paging", "phase_us", "chunk_digests",
         ):
             if key in msg:
                 info[key] = msg[key]
-        # one registry absorbs the whole SYNCED summary — wire counters and
-        # phase breakdown ride the frame they always rode
+        # one registry absorbs the whole SYNCED summary — paging counters,
+        # wire counters and phase breakdown ride the frame they always rode
         obs_metrics.absorb_sync_info(info)
         tr = obs_trace.get()
         if tr is not None and stall_us:
@@ -456,6 +485,7 @@ class ProxyRunner:
         self.proxy.register(
             **self.transport.register_fields(),
             chunk_bytes=self.chunk_bytes,
+            **self._paging_fields(),
             fused_digests=self.fused_digests,
             obs={
                 "inc": self.budget.count,

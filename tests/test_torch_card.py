@@ -376,3 +376,71 @@ def test_proxy_on_card_replays_bitwise(deterministic):
         assert info["chunk_digests"] == host
     finally:
         r.close()
+
+
+@pytest.mark.parametrize("policy", ["lru", "clock"])
+def test_managed_space_on_card_matches_cpu(cuda, policy):
+    """One seeded sequence of device reads and writes, host loads and
+    peeks, prefetches and whole-table evictions through a space whose
+    frames live on the card and one whose frames live on the CPU: the same
+    bytes, counters, page tables and host backing after every operation —
+    the batched H2D/D2H/D2D moves on the card change no decision."""
+    from repro_torch.utils.dtypes import byte_view
+    from repro_torch.uvm import Advice, ManagedSpace
+
+    rng = np.random.default_rng(7)
+    page = 4096
+    state = {"w": torch.from_numpy(rng.standard_normal(5 * page // 4 + 3).astype(np.float32)),
+             "b": torch.from_numpy(rng.integers(0, 256, 3 * page, dtype=np.uint8))
+             .view(torch.bfloat16), "s": torch.tensor(3, dtype=torch.int32)}
+    spaces = [ManagedSpace(4 * page, page_bytes=page, eviction_policy=policy,
+                           fault_window_pages=3, device=d) for d in (cuda, "cpu")]
+    spaces[0].register({k: v.to(cuda) for k, v in state.items()})  # leaves on the card
+    spaces[1].register(state)
+
+    def same():
+        a, b = spaces
+        assert a.stats_dict() == b.stats_dict()
+        for path in a.paths():
+            ta, tb = a.table(path), b.table(path)
+            for name in ("residency", "frame", "wb_dirty", "write_tick",
+                         "access_tick", "access_count"):
+                assert np.array_equal(getattr(ta, name), getattr(tb, name)), name
+            assert np.array_equal(a._regions[path].host, b._regions[path].host)
+        a.check_invariants()
+
+    same()
+    for _ in range(150):
+        path = list(state)[int(rng.integers(len(state)))]
+        nbytes = spaces[0]._regions[path].nbytes
+        lo = int(rng.integers(0, nbytes + 1))
+        hi = int(rng.integers(lo, nbytes + 1))
+        kind = rng.choice(["read", "write", "load", "peek", "prefetch", "advise",
+                           "evict", "leaf"])
+        if kind in ("read", "peek"):
+            got = [getattr(sp, f"{kind}_range")(path, lo, hi).cpu() for sp in spaces]
+            assert torch.equal(got[0], got[1])
+        elif kind in ("write", "load"):
+            data = torch.from_numpy(rng.integers(0, 256, hi - lo, dtype=np.uint8))
+            for sp in spaces:
+                fn = sp.write_range if kind == "write" else sp.load_range
+                fn(path, lo, data.to(sp.device))
+        elif kind == "prefetch":
+            a = int(rng.integers(0, spaces[0].table(path).n_pages))
+            assert len({sp.prefetch_pages(path, a, a + 3) for sp in spaces}) == 1
+        elif kind == "advise":
+            flag = [Advice.NONE, Advice.READ_MOSTLY, Advice.PREFERRED_HOST][
+                int(rng.integers(3))]
+            for sp in spaces:
+                sp.advise(path, flag)
+        elif kind == "evict":
+            for sp in spaces:
+                sp.pager.evict_table(sp.table(path))
+        else:
+            leaves = [sp.read_leaf(path) for sp in spaces]
+            assert leaves[0].device.type == "cuda"  # random bf16 bytes hold NaNs:
+            assert torch.equal(byte_view(leaves[0]).cpu(), byte_view(leaves[1]))  # bytes
+            for sp, leaf in zip(spaces, leaves):
+                sp.write_leaf(path, leaf)
+        same()
+    assert spaces[0].stats.evictions > 0 and spaces[0].stats.writebacks > 0

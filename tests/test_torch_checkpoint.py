@@ -235,3 +235,56 @@ def test_reference_cluster_store_restores_through_port(tmp_path, rng):
     assert [len(lv.shards) for lv in m.leaves.values()] == [2, 2]
     _assert_same_state({"device": state["device"], "host": {}},
                        {"device": got["device"], "host": {}})
+
+
+# -- the synchronous baseline and the persist-backend plugin point ----------------
+
+@pytest.mark.parametrize("backend", ["thread", "fork"])
+def test_save_sync_commits_and_restores_through_reference(tmp_path, rng, backend):
+    """``save_sync`` (the paper's naive strategy) returns with the image
+    committed and charges the whole persist to the application."""
+    state = _np_state(rng)
+    tstate = {"device": {k: array_to_tensor(v) for k, v in state["device"].items()},
+              "host": state["host"]}
+    ck = ForkedCheckpointer(ChunkStore(str(tmp_path / "ck")), chunk_bytes=256,
+                            backend=backend)
+    r = ck.save_sync(3, tstate)
+    assert r.done.is_set() and r.error is None
+    assert r.blocking_s >= r.persist_s > 0
+    assert RestoreManager(ChunkStore(str(tmp_path / "ck"))).available_steps() == [3]
+    ck.close()
+    got, manifest = rcore.RestoreManager(rck.ChunkStore(str(tmp_path / "ck"))).restore()
+    assert manifest.step == 3
+    _assert_same_state(tstate, got)
+
+
+def test_register_persist_backend_refuses_twice_unless_replaced(tmp_path, rng):
+    from repro_torch.core import register_persist_backend
+    from repro_torch.core.forked import (
+        _PERSIST_BACKENDS,
+        ThreadPersistBackend,
+        list_persist_backends,
+    )
+
+    made = []
+
+    class Counting(ThreadPersistBackend):
+        def __init__(self, checkpointer):
+            made.append(self)
+            super().__init__(checkpointer)
+
+    try:
+        register_persist_backend("counting", Counting)
+        assert "counting" in list_persist_backends()
+        with pytest.raises(ValueError, match="already registered"):
+            register_persist_backend("counting", ThreadPersistBackend)
+        register_persist_backend("counting", ThreadPersistBackend, replace=True)
+        ck = ForkedCheckpointer(ChunkStore(str(tmp_path / "ck")), backend="counting")
+        assert type(ck.backend) is ThreadPersistBackend and not made
+        ck.close()
+        register_persist_backend("counting", Counting, replace=True)
+        ck = ForkedCheckpointer(ChunkStore(str(tmp_path / "ck")), backend="counting")
+        assert made == [ck.backend]
+        ck.close()
+    finally:
+        _PERSIST_BACKENDS.pop("counting", None)

@@ -116,3 +116,18 @@ def test_tree_digests_match_reference(rng):
     assert ops.tree_chunk_digests(torch_tree, 64) == want
     # host leaves (numpy) take the numpy oracle path
     assert ops.tree_chunk_digests(tree, 64) == want
+
+
+@pytest.mark.parametrize("words, fill", [(1024, 1.0), (256, 2.0), (262144, 2.0)])
+def test_constant_chunks_share_the_zero_chunks_digest(words, fill):
+    """A known weakness of the shared digest, pinned in both packages: a
+    chunk of one repeated f32 value can digest like a chunk of zeros (the
+    mixes cancel over a repeated word), so an incremental persist that
+    reuses chunks by digest would keep a stale zero chunk. The port must
+    keep the reference's digest (the format is shared), so it shares the
+    weakness; a format change must come to both packages together."""
+    zeros = np.zeros(words, np.float32)
+    const = np.full(words, fill, np.float32)
+    assert chunk_digest_np(zeros) == chunk_digest_np(const)
+    assert torch.equal(ref.chunk_digests_plain(torch.from_numpy(zeros), words * 4),
+                       ref.chunk_digests_plain(torch.from_numpy(const), words * 4))

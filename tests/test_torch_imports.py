@@ -60,3 +60,23 @@ def test_train_cli_defaults_to_the_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "qwen2-0.5b", "--smoke", "--steps", "1"])
+
+
+def test_uvm_package_imports_alone():
+    """``repro_torch.uvm`` keeps its own copies of the reference's
+    framework-free modules: importing it loads no JAX, no reference, no
+    ``msgpack`` and no ``ml_dtypes``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.uvm as u\n"
+        "assert u.ManagedSpace and u.PageTable and u.PrefetchStream\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'msgpack', 'ml_dtypes'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"}, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -602,6 +602,22 @@ def test_train_arch_state_matches_reference_layout():
     assert not np.array_equal(b1["inputs"], prog.batch_at(4)["inputs"])
 
 
+def test_train_arch_depth_cut_keeps_the_widths():
+    """``num_layers`` cuts only the layer axis of the stacked block leaves:
+    the same paths, and every other dimension as the full config's."""
+    full = flatten_with_paths(make_program(ARCH).meta_state())[0]
+    cut = flatten_with_paths(make_program(dict(ARCH, num_layers=1)).meta_state())[0]
+    assert list(cut) == list(full)
+    deeper = 0
+    for p, t in cut.items():
+        f = full[p]
+        if tuple(t.shape) != tuple(f.shape):
+            assert (t.shape[0], f.shape[0]) == (1, 2) and t.shape[1:] == f.shape[1:], p
+            deeper += 1
+    assert deeper > 0
+    assert make_program(dict(ARCH, num_layers=1)).state_nbytes() < make_program(ARCH).state_nbytes()
+
+
 def test_train_arch_step_matches_reference_step_fn():
     """Two steps of train_arch on the reference's init (carried over by
     ``models/convert.py``) and the port's batches, against the reference's
@@ -783,21 +799,23 @@ def test_upload_writes_tensors_in_place_and_rebuilds_whole_leaves():
 
 
 def test_register_with_device_capacity_is_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _runner(device_capacity_bytes=1 << 20)
+    """A managed budget below one page is refused before any proxy runs
+    (managed memory itself is served: tests/test_torch_uvm_proxy.py)."""
+    with pytest.raises(ValueError, match="smaller than one page"):
+        _runner(device_capacity_bytes=1 << 10, page_bytes=1 << 12)
 
 
 def test_service_refuses_a_register_frame_with_device_capacity():
     """A REGISTER from elsewhere (the reference's runner sends the field)
-    that asks for managed memory is refused by the service itself."""
+    whose budget is below one page is refused by the service itself."""
     from repro_torch.proxy.client import DeviceProxy
 
     proxy = DeviceProxy(op_timeout_s=TIMEOUTS["op_timeout_s"]).start()
     try:
         proxy.send_program(SPEC)
-        with pytest.raises(RuntimeError, match="not ported"):
+        with pytest.raises(RuntimeError, match="smaller than one page"):
             proxy.register(layout={}, chunk_bytes=1 << 10,
-                           device_capacity_bytes=1 << 20)
+                           device_capacity_bytes=1 << 10, page_bytes=1 << 12)
     finally:
         proxy.close(graceful=False)
 
