@@ -97,9 +97,39 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    launch per step, no ``/dev/nvidia-uvm`` in the application, and its
    step-4 image bitwise equal to the same program run 4 steps inline
    through a managed trainer;
-9. the last line: ``{"ok": true, "device": {...}}``.
+9. the cluster (``[cluster]``): ``repro_torch.coord.run_cluster`` with 2
+   ranks on the card, each a spawned process holding a full replica of
+   qwen2-0.5b (full width and depth, the train program of 3), 6 steps,
+   checkpoints at 2/4/6, fork, codec ``none``, 1 MiB chunks; each rank
+   persists only its windows (views of its card tensors, digested on the
+   card) and the coordinator two-phase-commits the merged image. Rank 1 is
+   killed at step 4 after READY: round 4 must abort naming host 1, its
+   retry commit, the respawned rank restore step 2 (once), a
+   ``worker_death`` alert be journaled, and the ranks finish in lockstep.
+   This process runs the same program inline on the card from the same
+   host init: each round's provenance table (one rank's ack) must equal
+   ``chunk_digest_np`` over that step's replica, and the committed step-6
+   image (whole), its 3-rank elastic re-slice (stitched) and both ranks'
+   final digests must equal the inline state bit for bit. Each rank
+   counts its own kernel launches and sends them in its acks: exactly one
+   ``chunk_digest`` launch per boundary for its provenance table, one per
+   shadow sync but a rank process's first (whose digests the persist child
+   backfills), and none of either kernel while it steps (seq 512 stays
+   below the flash threshold). Printed per round and rank: blocking,
+   persist, sync/digest/fetch us, chunks synced, bytes written, the
+   launches, the lockstep witness (SHA-256 of the replica) ms; once: rank
+   1's recovery (death to re-JOIN), card memory before and at its lowest,
+   the wall. ``[cluster:proxy]``: 2 ranks, each with a local proxy
+   (segment transport, fused digests), the program cut to 2 of its 24
+   layers (full width), 4 steps, checkpoints at 2/4, no kill: lockstep,
+   images at 2 and 4, the inline run's bits, each rank's proxy one fused
+   digest launch per step (from its SYNCED, in the acks), and each round's
+   provenance table (one rank's ack) equal to ``chunk_digest_np`` over the
+   inline replica;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
-It exits nonzero without a result when no CUDA device is available.
+Every phase ends with a ``[<phase>] wall_s=...`` line. It exits nonzero
+without a result when no CUDA device is available.
 """
 from __future__ import annotations
 
@@ -720,7 +750,7 @@ def phase_flash_timing(serve_launches: int) -> dict:
 
 
 # [uvm:paged] trains this at full depth; [proxy] at PROXY_LAYERS of its 24
-# layers (full width), a cut for the script's time (PERF.md §4)
+# (full width), a cut for the script's time (PERF.md §4)
 UVM_SPEC = {"name": "train_arch", "arch": ARCH, "smoke": False, "batch": BATCH,
             "seq": SEQ, "lr": LR, "total_steps": STEPS, "device": "cuda"}
 PROXY_LAYERS = 4
@@ -1179,6 +1209,7 @@ def phase_uvm(card: str, unmanaged6) -> dict:
     cfg = get_config(ARCH)
     run = build_training(cfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=STEPS, device=cuda)
     out = {}
+    t_sub = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-uvm-") as tmp:
         store = os.path.join(tmp, "ckpt")
         argv = ["--arch", ARCH, "--steps", str(STEPS), "--batch", str(BATCH),
@@ -1278,8 +1309,11 @@ def phase_uvm(card: str, unmanaged6) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
+        print(f"[uvm:cli] wall_s={time.perf_counter() - t_sub:.1f} (the CLI run, its "
+              f"restart and the inline steps)", flush=True)
         # Table 2 on the managed state: forked phase 1 at step 8 against the
         # naive synchronous save at step 10, each the first sync of its buffer
+        t_sub = time.perf_counter()
         tr = managed_trainer(store, 2)
         state, start = tr.resume_or(run.init_state)
         if start != STEPS:
@@ -1308,6 +1342,8 @@ def phase_uvm(card: str, unmanaged6) -> dict:
               f"(step {forked.step}, persist_ms={t2['forked_persist_ms']:.1f}) "
               f"sync_ms={t2['sync_ms']:.1f} (save_sync step {sync.step}: phase 1 + "
               f"persist) speedup_vs_naive={t2['speedup_vs_naive']:.2f}", flush=True)
+        print(f"[uvm:table2] wall_s={time.perf_counter() - t_sub:.1f}", flush=True)
+        t_sub = time.perf_counter()
         del tr, state, naive
         gc.collect()
         torch.cuda.empty_cache()
@@ -1365,6 +1401,7 @@ def phase_uvm(card: str, unmanaged6) -> dict:
           f"watched {w['samples']} times: app_with_context={w['app_contexts']} "
           f"proxy_with_context={w['proxy_contexts']} "
           f"step4_image_bitwise_equal_to_inline_managed={same_paged}", flush=True)
+    print(f"[uvm:paged] wall_s={time.perf_counter() - t_sub:.1f}", flush=True)
     launches = sum(sy["phase_us"].get("digest_launches", 0) for sy in paged["syncs"])
     flash = sum(sy["phase_us"].get("flash_launches", 0) for sy in paged["syncs"])
     if paged["restarts"] != 1 or not paged["recoveries"] or paged["killed_pid"] is None:
@@ -1389,6 +1426,256 @@ def phase_uvm(card: str, unmanaged6) -> dict:
                 launches_proxy={"chunk_digest": launches, "flash_attention": flash})
 
 
+@contextlib.contextmanager
+def _clock(tag: str):
+    """The phase's wall-clock line, printed when it ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[{tag}] wall_s={time.perf_counter() - t0:.1f}", flush=True)
+
+
+# [cluster] trains the full train program; [cluster:proxy] 2 of its 24
+# layers (full width), for the script's time
+CLUSTER_SPEC = dict(UVM_SPEC)
+CLUSTER_PROXY_SPEC = dict(UVM_SPEC, num_layers=2)
+CLUSTER_CHUNK = 1 << 20
+
+
+def _host_chunk_table(state, cb: int) -> dict:
+    """``chunk_digest_np`` over every leaf's bytes, on the host (8 threads)."""
+    import concurrent.futures as cf
+
+    from repro_torch.checkpoint.chunking import chunk_digest_np
+    from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
+
+    out = {}
+    with cf.ThreadPoolExecutor(8) as pool:
+        for path, leaf in flatten_with_paths(state)[0].items():
+            raw = leaf_bytes(leaf)
+            out[path] = list(pool.map(lambda i: chunk_digest_np(raw[i : i + cb]),
+                                      range(0, max(raw.nbytes, 1), cb)))
+    return out
+
+
+class _MemWatch:
+    """The card's free memory, sampled every half second while the block runs."""
+
+    def __init__(self):
+        import threading
+
+        self.free0, self.total = torch.cuda.mem_get_info()
+        self.low = self.free0
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(0.5):
+            self.low = min(self.low, torch.cuda.mem_get_info()[0])
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.free1 = torch.cuda.mem_get_info()[0]
+
+
+def _cluster_rounds(tag: str, card: str, report) -> None:
+    acks = iter(report.acks)
+    for r in report.rounds:
+        if r.status != "committed":
+            print(f"{tag} {card} round step={r.step} {r.status} reason={r.reason!r} "
+                  f"round_ms={r.round_s * 1e3:.1f}", flush=True)
+            continue
+        print(f"{tag} {card} round step={r.step} committed round_ms={r.round_s * 1e3:.1f} "
+              f"commit_ms={r.commit_s * 1e3:.1f} bytes_written={r.bytes_written}", flush=True)
+        for h, a in sorted(next(acks).items()):
+            print(f"{tag} {card}   rank={h} blocking_ms={a['blocking_s'] * 1e3:.1f} "
+                  f"persist_ms={a['persist_s'] * 1e3:.1f} sync_us={a['sync_us']:.0f} "
+                  f"digest_us={a['digest_us']:.0f} fetch_us={a['fetch_us']:.0f} "
+                  f"chunks_synced={a['chunks_synced']} bytes_written={a['bytes_written']} "
+                  f"step_launches={a['step_launches']} "
+                  f"provenance_launches={a['provenance_launches']} "
+                  f"sync_launches={a['sync_launches']} "
+                  f"witness_ms={a.get('state_digest_s', 0) * 1e3:.1f}", flush=True)
+
+
+def phase_cluster(card: str) -> dict:
+    """The cluster path (``[cluster]``, then ``[cluster:proxy]``)."""
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.checkpoint.manifest import committed_steps
+    from repro_torch.coord import run_cluster
+    from repro_torch.core import RestoreManager
+    from repro_torch.obs.journal import read_journal
+    from repro_torch.proxy import make_program
+    from repro_torch.utils.dtypes import byte_view
+    from repro_torch.utils.tree import flatten_with_paths, tree_digest, tree_equal
+
+    import gc
+
+    tag = "[cluster]"
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    on_card = lambda p, s: cuda if p.startswith("device/") else None  # noqa: E731
+    prog = make_program(CLUSTER_SPEC)
+    nbytes = prog.state_nbytes()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cluster-") as tmp:
+        root = os.path.join(tmp, "ckpt")
+        mem = _MemWatch()
+        print(f"{tag} {card} state_bytes={nbytes} ranks=2 card_free_before={mem.free0} "
+              f"card_total={mem.total}", flush=True)
+        t0 = time.perf_counter()
+        with mem:
+            report = run_cluster(
+                root=root, n_hosts=2, total_steps=STEPS, ckpt_every=2, backend="fork",
+                codec="none", chunk_bytes=CLUSTER_CHUNK, program=CLUSTER_SPEC,
+                device="cuda", kill_host=1, kill_at_step=4, deadline_s=900.0,
+                round_timeout_s=300.0)
+        wall = time.perf_counter() - t0
+        _cluster_rounds(tag, card, report)
+        log = read_journal(report.log_path)
+        death = next(e.t for e in log if e.event == "death" and e.host == 1)
+        rejoin = next(e for e in log if e.event == "join" and e.host == 1
+                      and e.restored_from is not None)
+        print(f"{tag} {card} cluster wall_s={wall:.1f} restarts={report.restarts} "
+              f"host1_recovery_s={rejoin.t - death:.2f} (death to re-JOIN, restored "
+              f"from step {rejoin.restored_from}) card_free_lowest={mem.low} "
+              f"card_free_after={mem.free1} alerts={sorted(report.alert_kinds())}",
+              flush=True)
+
+        # the same program inline on the card, from the same host init
+        state = prog.on_restore(prog.init_state())
+        by_step = dict(zip([r.step for r in report.committed], report.acks))
+        oracle = {}
+        for step in range(1, STEPS + 1):
+            state, _ = prog.step(state, step)
+            if step % 2 == 0:
+                t1 = time.perf_counter()
+                table = _host_chunk_table(state, CLUSTER_CHUNK)
+                acked = by_step[step][0].get("chunk_digests")
+                oracle[step] = (acked == table, sum(map(len, table.values())),
+                                time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        inline_digest = tree_digest(state)
+        witness_s = time.perf_counter() - t1
+        rm = RestoreManager(ChunkStore(root))
+        t1 = time.perf_counter()
+        image, _ = rm.restore(step=STEPS, device_for=on_card)
+        restore_s = time.perf_counter() - t1
+        same = {"image": tree_equal(image["device"], state)
+                and int(image["host"]["step"]) == STEPS}
+        del image
+        same["final_digests"] = set(report.final_digests.values()) == {inline_digest}
+        flat = flatten_with_paths(state)[0]
+        rows = {p: 0 for p in flat}
+        elastic_ok = True
+        t1 = time.perf_counter()
+        for h in range(3):
+            tree, _ = rm.restore_elastic(n_hosts=3, host=h, step=STEPS, device=cuda)
+            for p, v in flatten_with_paths(tree["device"])[0].items():
+                if v.data is None:
+                    continue
+                leaf = flat[p]
+                window = leaf[v.start[0]:v.stop[0]] if leaf.dim() else leaf
+                elastic_ok &= torch.equal(byte_view(v.data), byte_view(window))
+                rows[p] += (v.stop[0] - v.start[0]) if leaf.dim() else 1
+            del tree
+        elastic_s = time.perf_counter() - t1
+        same["elastic_3"] = elastic_ok and all(
+            n == (flat[p].shape[0] if flat[p].dim() else 1) for p, n in rows.items())
+        print(f"{tag} {card} inline: provenance vs chunk_digest_np "
+              f"{ {s: (ok, n, round(t, 1)) for s, (ok, n, t) in oracle.items()} } "
+              f"inline_witness_ms={witness_s * 1e3:.1f} restore_step6_s={restore_s:.1f} "
+              f"elastic_3_s={elastic_s:.1f} bitwise={same}", flush=True)
+        steps = committed_steps(root)
+        del state
+        torch.cuda.empty_cache()
+
+    # each rank's launches per committed ack, counted in its own process:
+    # (window steps' digest and flash, provenance table, shadow sync); a
+    # rank process's first sync (step 2; step 4 for the respawned rank 1)
+    # leaves its digests to the persist child
+    first = {(0, 2), (1, 2), (1, rejoin.restored_from + 2)}
+    launches = {(h, r.step): (a["step_launches"]["chunk_digest"],
+                              a["step_launches"]["flash_attention"],
+                              a["provenance_launches"], a["sync_launches"])
+                for r, acks in zip(report.committed, report.acks) for h, a in acks.items()}
+    want = {k: (0, 0, 1, 0 if k in first else 1) for k in launches}
+    step4 = [r for r in report.rounds if r.step == 4]
+    if [r.step for r in report.committed] != [2, 4, 6] or steps != [2, 4, 6]:
+        raise SystemExit(f"cluster committed {[r.step for r in report.committed]} ({steps})")
+    if [r.status for r in step4] != ["aborted", "committed"] or "host 1" not in step4[0].reason:
+        raise SystemExit(f"round 4: {[(r.status, r.reason) for r in step4]}")
+    if report.restarts != {0: 0, 1: 1} or rejoin.restored_from != 2:
+        raise SystemExit(f"restarts {report.restarts}, restored from {rejoin.restored_from}")
+    if "worker_death" not in report.alert_kinds() or not report.lockstep():
+        raise SystemExit(f"alerts {report.alert_kinds()}, lockstep {report.lockstep()}")
+    if not all(ok for ok, _, _ in oracle.values()) or sorted(oracle) != [2, 4, 6]:
+        raise SystemExit(f"a round's chunk digests disagree with chunk_digest_np: {oracle}")
+    if not all(same.values()):
+        raise SystemExit(f"the cluster's states differ from the inline run: {same}")
+    if launches != want:
+        raise SystemExit(f"kernel launches per (rank, step), (step digest, step flash, "
+                         f"provenance, sync): {launches}, want {want}")
+
+    # [cluster:proxy]: each rank hosts a local proxy that owns the card
+    tag = "[cluster:proxy]"
+    with _clock("cluster:proxy"), tempfile.TemporaryDirectory(prefix="chip-smoke-cproxy-") as tmp:
+        root = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        prox = run_cluster(
+            root=root, n_hosts=2, total_steps=4, ckpt_every=2, backend="fork",
+            codec="none", chunk_bytes=CLUSTER_CHUNK, program=CLUSTER_PROXY_SPEC,
+            device="cuda", device_runner="proxy",
+            deadline_s=600.0, round_timeout_s=300.0)
+        pwall = time.perf_counter() - t0
+        _cluster_rounds(tag, card, prox)
+        pprog = make_program(CLUSTER_PROXY_SPEC)
+        pstate = pprog.on_restore(pprog.init_state())
+        pby_step = dict(zip([r.step for r in prox.committed], prox.acks))
+        poracle = {}
+        for step in range(1, 5):
+            pstate, _ = pprog.step(pstate, step)
+            if step % 2 == 0:
+                acked = pby_step[step][0].get("chunk_digests")
+                poracle[step] = acked == _host_chunk_table(pstate, CLUSTER_CHUNK)
+        image, _ = RestoreManager(ChunkStore(root)).restore(step=4, device_for=on_card)
+        psame = {"final_digests": set(prox.final_digests.values()) == {tree_digest(pstate)},
+                 "image": tree_equal(image["device"], pstate)}
+        psteps = committed_steps(root)
+        print(f"{tag} {card} cluster wall_s={pwall:.1f} state_bytes={pprog.state_nbytes()} "
+              f"committed={psteps} lockstep={prox.lockstep()} bitwise={psame} "
+              f"provenance vs chunk_digest_np {poracle}", flush=True)
+        del image, pstate
+        torch.cuda.empty_cache()
+    if not prox.lockstep() or psteps != [2, 4] or \
+            [r.step for r in prox.committed] != [2, 4] or not all(psame.values()):
+        raise SystemExit(f"proxied cluster: lockstep {prox.lockstep()} images {psteps} "
+                         f"bitwise {psame}")
+    if sorted(poracle) != [2, 4] or not all(poracle.values()):
+        raise SystemExit(f"a proxied round's chunk digests disagree with chunk_digest_np: "
+                         f"{poracle}")
+    # each proxy: one fused digest launch per step of the 2-step window, no
+    # flash; the rank itself (a host mirror) launches nothing
+    plaunches = {(h, r.step): (a["step_launches"]["chunk_digest"],
+                               a["step_launches"]["flash_attention"],
+                               a["provenance_launches"], a["sync_launches"])
+                 for r, acks in zip(prox.committed, prox.acks) for h, a in acks.items()}
+    if plaunches != {k: (2, 0, 0, 0) for k in plaunches} or len(plaunches) != 4:
+        raise SystemExit(f"proxied kernel launches per (rank, step), (step digest, step "
+                         f"flash, provenance, sync): {plaunches}")
+    return {"launches": {
+        "chunk_digest": sum(d + p + y for d, _, p, y in launches.values()),
+        "flash_attention": sum(f for _, f, _, _ in launches.values())},
+        "launches_proxy": {
+        "chunk_digest": sum(d for d, _, _, _ in plaunches.values()),
+        "flash_attention": sum(f for _, f, _, _ in plaunches.values())}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--codec", default="none",
@@ -1405,27 +1692,46 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = phase_card()
-    phase_sweep()
-    phase_flash_sweep()
+    t_script = time.perf_counter()
+    with _clock("card"):
+        card = phase_card()
+    with _clock("sweep"):
+        phase_sweep()
+    with _clock("flash-sweep"):
+        phase_flash_sweep()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         store = os.path.join(tmp, "ckpt")
-        final_state, launches = phase_main_path(store, args.codec)
-        device_state = phase_restart(store, final_state)
+        with _clock("main"):
+            final_state, launches = phase_main_path(store, args.codec)
+        with _clock("restart"):
+            device_state = phase_restart(store, final_state)
         del final_state
-        served = phase_serve(store)
-    rows = [phase_timing(device_state, launches)]
+        with _clock("serve"):
+            served = phase_serve(store)
+    with _clock("timing"):
+        rows = [phase_timing(device_state, launches)]
     unmanaged6 = _cpu_tree(device_state)  # the [uvm] phase's reference
     del device_state
-    rows.append(phase_flash_timing(served["launches"]))
-    proxied = phase_proxy(card)
+    with _clock("timing flash"):
+        rows.append(phase_flash_timing(served["launches"]))
+    with _clock("proxy"):
+        proxied = phase_proxy(card)
     # the proxy path's own count: the fused digest's launches in the proxy
     # processes, from their SYNCED frames (one per proxied step)
     rows[0]["launches_proxy"] = proxied["launches"]
-    uvm = phase_uvm(card, unmanaged6)
+    with _clock("uvm"):
+        uvm = phase_uvm(card, unmanaged6)
     for row in rows:  # each kernel's launches on the managed paths
         row["launches_uvm_inline"] = uvm["launches_inline"][row["name"]]
         row["launches_uvm_proxy"] = uvm["launches_proxy"][row["name"]]
+    with _clock("cluster"):
+        clustered = phase_cluster(card)
+    # the cluster paths' own counts: the ranks' (and their proxies')
+    # launches, counted in their processes and sent in their acks
+    for row in rows:
+        row["launches_cluster"] = clustered["launches"][row["name"]]
+        row["launches_cluster_proxy"] = clustered["launches_proxy"][row["name"]]
+    print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

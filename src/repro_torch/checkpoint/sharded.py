@@ -1,8 +1,10 @@
-"""Restore of stored leaves into tensors (the read half of the reference's
-``checkpoint/sharded.py``).
+"""Sharded, topology-independent save/restore of tensor trees.
 
-Leaves are stored as global logical arrays, each shard keyed by its global
-index range; a window of a leaf is assembled from whichever stored shards
+The CRUM principle applied to a cluster: the checkpoint image holds *no
+device state*. Leaves are stored as global logical arrays; every rank
+writes only the shards it owns, keyed by their global index ranges
+(:func:`host_slice_plan` is the ownership rule), and a restore onto any
+rank count assembles each window it needs from whichever stored shards
 overlap it. Bytes become a tensor through ``torch.frombuffer`` and a dtype
 view, with the dtype named in the manifest mapped through
 ``utils.dtypes`` — no ``ml_dtypes`` — and the result is moved to the target
@@ -11,15 +13,149 @@ device.
 from __future__ import annotations
 
 import math
-from typing import Any
+import zlib
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.chunking import chunk_digest_np
-from repro_torch.checkpoint.manifest import LeafRecord, Manifest
+from repro_torch.checkpoint.chunking import (
+    DEFAULT_CHUNK_BYTES,
+    chunk_digest_np,
+    iter_chunks,
+)
+from repro_torch.checkpoint.codecs import DEFAULT_CODEC
+from repro_torch.checkpoint.manifest import (
+    LeafRecord,
+    Manifest,
+    ShardRecord,
+    build_skeleton,
+    commit_manifest,
+    load_manifest,
+    skeleton_fill,
+)
 from repro_torch.checkpoint.store import ChunkStore
-from repro_torch.utils.dtypes import torch_dtype
+from repro_torch.utils.dtypes import dtype_name, leaf_shape, torch_dtype
+from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
+
+# (path, global shape) -> target device, or None to keep the leaf on the host
+DeviceFor = Callable[[str, tuple[int, ...]], "torch.device | str | None"]
+
+
+def host_slice_plan(
+    path: str, shape: tuple[int, ...], host: int, n_hosts: int
+) -> tuple[list[int], list[int]] | None:
+    """The global [start, stop) window ``host`` of ``n_hosts`` owns.
+
+    THE ownership rule of the cluster (the reference's, copied exactly),
+    defined once so persist (``coord.worker.shard_tree_for_host``) and
+    elastic restore (``RestoreManager.restore_elastic``) can never drift
+    apart — in either package:
+
+      - a leaf whose leading dimension is >= n_hosts splits contiguously
+        along dim 0, ``(host * n0) // n_hosts`` style — non-divisible
+        splits give some hosts one extra row, never gaps or overlaps;
+      - smaller leaves and scalars are whole-owned by a stable hash of
+        their path (exactly one host persists each byte);
+      - returns None when this host owns nothing of the leaf.
+    """
+    shape = tuple(int(d) for d in shape)
+    if n_hosts <= 0:
+        raise ValueError(f"n_hosts must be positive, got {n_hosts}")
+    if not 0 <= host < n_hosts:
+        raise ValueError(f"host {host} outside [0, {n_hosts})")
+    if len(shape) >= 1 and shape[0] >= n_hosts:
+        n0 = shape[0]
+        lo = (host * n0) // n_hosts
+        hi = ((host + 1) * n0) // n_hosts
+        return [lo] + [0] * (len(shape) - 1), [hi] + list(shape[1:])
+    if zlib.crc32(path.encode()) % n_hosts == host:
+        return [0] * len(shape), list(shape)
+    return None
+
+
+def _leaf_shards(leaf: Any) -> list[tuple[list[int], list[int], np.ndarray]]:
+    """(start, stop, host bytes) of the shards this process writes: a
+    tensor or host value is one whole-leaf shard, a ``HostShardView`` its
+    window (nothing when unowned)."""
+    from repro_torch.core.shadow import _owned_host_shards
+
+    return [(start, stop, leaf_bytes(data))
+            for _ordinal, start, stop, data in _owned_host_shards(leaf)]
+
+
+def _prev_digest_map(prev: Manifest | None) -> dict[tuple, Any]:
+    """(path, start, stop, chunk_idx) -> ChunkRecord from a prior manifest."""
+    if prev is None:
+        return {}
+    out = {}
+    for path, lv in prev.leaves.items():
+        for s in lv.shards:
+            for c in s.chunks:
+                out[(path, tuple(s.start), tuple(s.stop), c.index)] = c
+    return out
+
+
+def save_pytree(
+    state: Any,
+    store: ChunkStore,
+    step: int,
+    *,
+    codec: str = DEFAULT_CODEC,
+    chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+    host: int = 0,
+    prev_manifest: Manifest | None = None,
+    meta: dict | None = None,
+    commit: bool = True,
+    fsync: bool = False,
+) -> Manifest:
+    """Write this host's shards of ``state`` synchronously; commit the
+    manifest (or, with ``commit=False``, only return it).
+
+    Leaves are tensors (on any device: their bytes are copied to the host),
+    host values, or ``HostShardView`` windows. ``prev_manifest`` enables
+    incremental checkpoints: chunks whose digest matches the previous
+    image are *referenced*, not rewritten.
+    """
+    flat, _ = flatten_with_paths(state)
+    skeleton = build_skeleton(state)
+    prev = _prev_digest_map(prev_manifest)
+
+    manifest = Manifest(step=step, skeleton=skeleton, meta=meta or {})
+    writer = store.writer(step, host)
+    reused = written = 0
+    try:
+        for path, leaf in flat.items():
+            lrec = LeafRecord(path=path, shape=leaf_shape(leaf), dtype=dtype_name(leaf))
+            for start, stop, data in _leaf_shards(leaf):
+                srec = ShardRecord(start=start, stop=stop)
+                for key, raw in iter_chunks(path, data, chunk_bytes):
+                    digest = chunk_digest_np(raw)
+                    old = prev.get((path, tuple(start), tuple(stop), key.index))
+                    if old is not None and old.digest == digest and old.raw_len == len(raw):
+                        srec.chunks.append(old)  # delta reference
+                        reused += 1
+                    else:
+                        srec.chunks.append(
+                            writer.append(raw, codec, index=key.index, digest=digest)
+                        )
+                        written += 1
+                lrec.shards.append(srec)
+            manifest.leaves[path] = lrec
+    finally:
+        writer.close(fsync=fsync)
+    manifest.meta.setdefault("chunks_written", written)
+    manifest.meta.setdefault("chunks_reused", reused)
+    if commit:
+        # directory durability tracks the payload fsync knob (see manifest
+        # .fsync_dir): dir fsyncs without payload fsyncs buy nothing
+        commit_manifest(store.root, manifest, durable=fsync)
+    return manifest
+
+
+# --------------------------------------------------------------------------
+# Restore
+# --------------------------------------------------------------------------
 
 
 class _LeafAssembler:
@@ -90,21 +226,65 @@ class _LeafAssembler:
         return self.window([0] * len(self.shape), list(self.shape))
 
 
-def restore_leaf(
-    store: ChunkStore, lrec: LeafRecord, device: torch.device | str | None
-) -> Any:
-    """Restore one leaf.
-
-    With a ``device`` the leaf comes back as a tensor there. Without one it
-    stays on the host as the reference returns it: a numpy array — except
-    for dtypes numpy has no type for (bfloat16), which stay CPU tensors.
-    """
-    t = _LeafAssembler(store, lrec).full()
+def _placed(t: torch.Tensor, device: torch.device | str | None) -> Any:
+    """A restored CPU tensor on ``device``; without one, on the host as the
+    reference returns it: a numpy array — except for dtypes numpy has no
+    type for (bfloat16), which stay CPU tensors."""
     if device is not None:
         return t.to(device)
     if t.dtype == torch.bfloat16:
         return t
     return t.numpy()
+
+
+def restore_leaf(
+    store: ChunkStore, lrec: LeafRecord, device: torch.device | str | None
+) -> Any:
+    """Restore one leaf: a tensor on ``device``, or a host value without
+    one (see :func:`_placed`)."""
+    return _placed(_LeafAssembler(store, lrec).full(), device)
+
+
+def restore_pytree(
+    store: ChunkStore,
+    step: int,
+    device: Any = None,
+    *,
+    verify_digests: bool = False,
+) -> tuple[Any, Manifest]:
+    """Restore the full tree saved at ``step``.
+
+    ``device`` is None (host values), one device for every leaf, or a tree
+    matching the saved structure whose leaves are devices or None — the
+    port's counterpart of the reference's shardings argument.
+    """
+    manifest = load_manifest(store.root, step)
+    if verify_digests:
+        verify_manifest(store, manifest)
+    per_path: dict[str, Any] | None = None
+    if isinstance(device, (dict, list, tuple)):
+        per_path, _ = flatten_with_paths(device)
+    leaves = {
+        path: restore_leaf(
+            store, lrec, per_path.get(path) if per_path is not None else device
+        )
+        for path, lrec in manifest.leaves.items()
+    }
+    return skeleton_fill(manifest.skeleton, leaves), manifest
+
+
+def restore_pytree_elastic(
+    store: ChunkStore,
+    step: int,
+    device_for: DeviceFor,
+) -> tuple[Any, Manifest]:
+    """Elastic restore: each leaf's target device chosen per (path, shape)."""
+    manifest = load_manifest(store.root, step)
+    leaves = {
+        path: restore_leaf(store, lrec, device_for(path, tuple(lrec.shape)))
+        for path, lrec in manifest.leaves.items()
+    }
+    return skeleton_fill(manifest.skeleton, leaves), manifest
 
 
 def verify_manifest(store: ChunkStore, manifest: Manifest) -> None:

@@ -1,12 +1,46 @@
-"""Wire framing: u32-length-prefixed MessagePack frames over TCP.
+"""Coordinator wire protocol: u32-length-prefixed MessagePack frames over TCP.
 
-The framing of the reference's ``repro.coord.protocol``, byte for byte:
+The framing and message vocabulary of the reference's
+``repro.coord.protocol``, byte for byte:
 a little-endian u32 payload length, then the payload packed as
 ``msgpack.packb(msg, use_bin_type=True)`` packs it — here by the port's own
 codec (``checkpoint.msgpack_lite``), so the same dict gives the same bytes
 in either package and a peer of one package reads frames of the other.
-The device proxy (``repro_torch.proxy``) speaks this framing; the
-coordinator's message vocabulary comes with the cluster slice of the port.
+The device proxy (``repro_torch.proxy``) speaks this framing, and so does
+the cluster (``repro_torch.coord``): ranks connect to the coordinator on
+loopback and speak the vocabulary below. Payloads are primitive-only maps —
+bulk data (chunk payloads, hostmetas) never crosses the socket, it goes
+through the shared checkpoint root. With tracing on, a frame may also carry
+``ctx`` (the causal trace context); PERSIST_DONE may carry
+``chunk_digests`` ({path: [u64, ...]}) so a divergence alert can name the
+first forked chunk.
+
+Rank -> coordinator::
+
+    JOIN          {host, pid, restored_from}   first frame on a connection
+    HEARTBEAT     {host, step, wt?, metrics?}  liveness; ``wt`` the sender's
+                                               wall clock, ``metrics`` its
+                                               registry delta
+                                               (``repro_torch.obs.live``)
+    READY         {host, step}                 at a checkpoint boundary
+    PERSIST_DONE  {host, step, hostmeta, persist_s, blocking_s,
+                   bytes_written, chunks_written, chunks_reused,
+                   state_digest?}
+    PERSIST_FAIL  {host, step, error}
+    FINISHED      {host, step, digest}         training loop complete
+
+Side channels (any connection, no JOIN)::
+
+    PROXY_ENDPOINT {op: "register" | "acquire", ...}   proxy placement
+    METRICS        {op: "snapshot"}                    live telemetry readout
+
+Coordinator -> rank::
+
+    WELCOME       {host, n_hosts, latest_committed}
+    DRAIN         {step}           all participants ready: persist now
+    COMMIT        {step}           merged MANIFEST durable; image visible
+    ABORT         {step, reason}   round void; previous image stands
+    SHUTDOWN      {}
 """
 from __future__ import annotations
 
@@ -16,6 +50,20 @@ import threading
 from typing import Any
 
 from repro_torch.checkpoint.msgpack_lite import packb, unpackb
+
+MSG_JOIN = "JOIN"
+MSG_WELCOME = "WELCOME"
+MSG_HEARTBEAT = "HEARTBEAT"
+MSG_READY = "READY"
+MSG_DRAIN = "DRAIN"
+MSG_PERSIST_DONE = "PERSIST_DONE"
+MSG_PERSIST_FAIL = "PERSIST_FAIL"
+MSG_COMMIT = "COMMIT"
+MSG_ABORT = "ABORT"
+MSG_FINISHED = "FINISHED"
+MSG_SHUTDOWN = "SHUTDOWN"
+MSG_PROXY_ENDPOINT = "PROXY_ENDPOINT"
+MSG_METRICS = "METRICS"
 
 _LEN = struct.Struct("<I")
 MAX_FRAME = 16 << 20  # a control frame this large is a protocol bug

@@ -1,5 +1,6 @@
 """CRUM core — the paper's contribution, over PyTorch state on a CUDA card."""
 from repro_torch.core.shadow import (
+    HostShardView,
     ShadowStateManager,
     ChunkState,
     SyncStats,
@@ -26,7 +27,7 @@ from repro_torch.core.failure import (
 from repro_torch.core.trainer import CheckpointedTrainer
 
 __all__ = [
-    "ShadowStateManager", "ChunkState", "SyncStats",
+    "HostShardView", "ShadowStateManager", "ChunkState", "SyncStats",
     "ForkedCheckpointer", "CheckpointResult",
     "PersistBackend", "PersistJob",
     "ThreadPersistBackend", "ForkPersistBackend",

@@ -18,9 +18,13 @@ from repro_torch.utils.tree import flatten_with_paths
 def drain(state: Any) -> float:
     """Returns seconds spent draining."""
     with Timer() as t:
+        from repro_torch.core.shadow import HostShardView
+
         flat, _ = flatten_with_paths(state)
+        leaves = [leaf.data if isinstance(leaf, HostShardView) else leaf
+                  for leaf in flat.values()]
         devices = {
-            leaf.device for leaf in flat.values()
+            leaf.device for leaf in leaves
             if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda"
         }
         for dev in devices:

@@ -32,6 +32,13 @@ Phase 2 is pluggable (``backend=``):
               pools can deadlock a forked child. Everything it reads is
               host memory the parent prepared before the fork.
 
+In a cluster (``repro_torch.coord``) each rank's checkpointer runs in
+*external-commit* mode: persist writes the rank's payload and its
+``hostmeta-h*.msgpack`` fragment, never MANIFEST or COMMIT — those belong
+to the coordinator, once every rank has acked (two-phase commit). Only a
+round the coordinator confirms (``commit_confirmed``) becomes the base of
+the next incremental delta; an aborted one (``commit_aborted``) never does.
+
 Double buffering (max_pending+1 ShadowStateManagers) lets checkpoint N+1's
 phase 1 begin while checkpoint N's phase 2 is still writing — after which
 phase 1 blocks.
@@ -61,6 +68,7 @@ from repro_torch.checkpoint.manifest import (
     build_skeleton,
     commit_manifest,
     referenced_steps,
+    write_hostmeta,
 )
 from repro_torch.checkpoint.store import ChunkStore
 from repro_torch.core.drain import drain
@@ -116,6 +124,8 @@ class PersistJob:
     prev: Manifest | None
     meta: dict
     shadow_gen: int = 0        # buffer generation the snapshot belongs to
+    # causal context the persist span parents to (None: tracing off)
+    trace_ctx: dict | None = None
 
 
 def _persist_image(
@@ -134,6 +144,7 @@ def _persist_image(
     counters: CheckpointResult,
     writer: "ChunkStore.Writer | None" = None,
     progress: Callable[[], None] | None = None,
+    external_commit: bool = False,
 ) -> tuple[Manifest, dict[tuple[str, int], list[int]]]:
     """Compress + write one snapshot and commit (or stage) its manifest.
 
@@ -143,6 +154,11 @@ def _persist_image(
     committed manifest plus the per-stream chunk digests for shadow
     backfill. ``progress`` (if given) is called after each leaf so callers
     can stream counters while the image is still being written.
+
+    With ``external_commit`` the image is *staged*, not committed: the
+    host's manifest fragment lands as ``hostmeta-h*.msgpack`` and writing
+    MANIFEST + COMMIT belongs to the cluster coordinator once every
+    participant has acked (two-phase commit; see repro_torch.coord).
     """
     prev_map: dict[tuple, Any] = {}
     if prev is not None:
@@ -208,10 +224,13 @@ def _persist_image(
         chunks_written=counters.chunks_written,
         chunks_reused=counters.chunks_reused,
     )
-    # directory durability tracks the payload fsync knob: without the
-    # payload bytes being fsynced, fsyncing directory entries buys
-    # nothing, and with them it completes the power-failure story
-    commit_manifest(store.root, manifest, durable=fsync)
+    if external_commit:
+        write_hostmeta(store.root, step, host, manifest)
+    else:
+        # directory durability tracks the payload fsync knob: without the
+        # payload bytes being fsynced, fsyncing directory entries buys
+        # nothing, and with them it completes the power-failure story
+        commit_manifest(store.root, manifest, durable=fsync)
     return manifest, digests_out
 
 
@@ -236,6 +255,12 @@ class PersistBackend:
 
     def close(self) -> None:
         """Wait for in-flight persists and release backend resources."""
+
+    def kill_pending(self) -> None:
+        """Forcibly stop in-flight persists (no-op unless the backend owns
+        other processes). A rank about to hard-exit on a hung persist
+        calls this so no orphan keeps an fd on files a respawned
+        incarnation will truncate and rewrite."""
 
 
 class ThreadPersistBackend(PersistBackend):
@@ -274,6 +299,7 @@ class ThreadPersistBackend(PersistBackend):
                 prev=job.prev,
                 meta=job.meta,
                 counters=result,
+                external_commit=ck.external_commit,
             )
             for key, d in digests.items():
                 job.shadow.set_digests(key, d, generation=job.shadow_gen)
@@ -286,7 +312,8 @@ class ThreadPersistBackend(PersistBackend):
             if tr is not None:
                 tr.complete("ckpt.persist", t0, step=result.step,
                             backend="thread",
-                            bytes_written=result.bytes_written)
+                            bytes_written=result.bytes_written,
+                            **obs_trace.ctx_args(job.trace_ctx))
             ck._finish_job(job)
 
     def close(self) -> None:
@@ -417,6 +444,7 @@ class ForkPersistBackend(PersistBackend):
                 counters=counters,
                 writer=writer,
                 progress=stream_counters,
+                external_commit=ck.external_commit,
             )
         except Exception as e:
             err = f"{type(e).__name__}: {e}"
@@ -427,7 +455,8 @@ class ForkPersistBackend(PersistBackend):
             # shows the COW persist running beside the training steps
             tr.complete("ckpt.persist", t0, step=counters.step,
                         backend="fork", error=err,
-                        bytes_written=counters.bytes_written)
+                        bytes_written=counters.bytes_written,
+                        **obs_trace.ctx_args(job.trace_ctx))
         obs_metrics.REGISTRY.inc("ckpt_fork_persists_total")
         obs_metrics.REGISTRY.inc("ckpt_fork_bytes_written",
                                  counters.bytes_written)
@@ -511,6 +540,17 @@ class ForkPersistBackend(PersistBackend):
         for t in threads:
             t.join()
 
+    def kill_pending(self) -> None:
+        import signal
+
+        with self._cond:
+            pids = list(self._live)
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
 
 _PERSIST_BACKENDS: dict[str, Callable[["ForkedCheckpointer"], PersistBackend]] = {
     ThreadPersistBackend.name: ThreadPersistBackend,
@@ -560,6 +600,7 @@ class ForkedCheckpointer:
         host: int = 0,
         fsync: bool = False,
         backend: str = "thread",
+        external_commit: bool = False,
         dirty_source: Any = None,
         timings: Timings | None = None,
     ):
@@ -571,6 +612,13 @@ class ForkedCheckpointer:
         self.fsync = fsync
         self.io_workers = io_workers
         self.max_pending = max(1, int(max_pending))
+        # external_commit: persist writes hostmeta-h*.msgpack only; the
+        # cluster coordinator merges hostmetas and owns MANIFEST + COMMIT.
+        # Incremental deltas then base on *cluster-committed* images only:
+        # a staged manifest becomes the delta base via commit_confirmed(),
+        # never implicitly (an aborted round's chunks may be overwritten by
+        # the retry).
+        self.external_commit = external_commit
         # dirty_source: page-granular dirty history (a ManagedSpace adapter:
         # tick() + dirty_chunk_marks_since(tick, chunk_bytes)). When set,
         # phase 1 marks exactly the chunks written since THIS buffer's last
@@ -579,6 +627,7 @@ class ForkedCheckpointer:
         self.timings = timings or Timings()
         self._pending: list[CheckpointResult] = []
         self._prev_manifest: Manifest | None = None
+        self._staged: dict[int, Manifest] = {}  # step -> unconfirmed manifest
         self._lock = threading.Lock()
         self.backend = make_persist_backend(backend, self)
         self._buffers = [
@@ -605,13 +654,20 @@ class ForkedCheckpointer:
 
     # -- the checkpoint entry point ------------------------------------------
     def save_async(
-        self, step: int, state: Any, *, meta: dict | None = None
+        self,
+        step: int,
+        state: Any,
+        *,
+        meta: dict | None = None,
+        trace_ctx: dict | None = None,
     ) -> CheckpointResult:
         """Phase 1 inline (blocking, fast); phase 2 on the persist backend.
 
         With a ``dirty_source``, phase 1 marks exactly the chunks written
         since this buffer's last sync and fetches them without a digest
-        compare."""
+        compare. ``trace_ctx`` is the caller's round context: phase 1
+        records a child span of it and the persist (even across a fork) a
+        grandchild."""
         result = CheckpointResult(step=step, blocking_s=0.0)
         with self.timings.measure("ckpt/blocking") as _:
             t0 = time.perf_counter()
@@ -648,11 +704,13 @@ class ForkedCheckpointer:
             result.chunks_clean = stats.chunks_total - stats.chunks_fetched
             result.bytes_skipped = stats.bytes_total - stats.bytes_fetched
             result.blocking_s = time.perf_counter() - t0
+            pctx = obs_trace.child_span(trace_ctx)
             tr = obs_trace.get()
             if tr is not None:
                 tr.complete("ckpt.phase1", t0, step=step,
                             chunks_synced=result.chunks_synced,
-                            bytes_snapshot=result.bytes_snapshot)
+                            bytes_snapshot=result.bytes_snapshot,
+                            **obs_trace.ctx_args(pctx))
 
         job = PersistJob(
             result=result,
@@ -664,6 +722,7 @@ class ForkedCheckpointer:
             prev=self._prev_manifest if self.incremental else None,
             meta=meta or {},
             shadow_gen=shadow.generation,
+            trace_ctx=obs_trace.child_span(pctx),
         )
         # phase 2 (possibly a fork child) reads this buffer generation: a
         # re-registration must retire, not release, it until the job is done
@@ -714,8 +773,26 @@ class ForkedCheckpointer:
     # -- backend callbacks -------------------------------------------------------
     def _note_manifest(self, manifest: Manifest) -> None:
         with self._lock:
+            if self.external_commit:
+                self._staged[manifest.step] = manifest
+                return
             if self._prev_manifest is None or manifest.step >= self._prev_manifest.step:
                 self._prev_manifest = manifest
+
+    # -- external (coordinator-driven) commit ------------------------------------
+    def commit_confirmed(self, step: int) -> None:
+        """Coordinator committed ``step``: promote it to the delta base."""
+        with self._lock:
+            m = self._staged.pop(step, None)
+            if m is not None and (
+                self._prev_manifest is None or m.step >= self._prev_manifest.step
+            ):
+                self._prev_manifest = m
+
+    def commit_aborted(self, step: int) -> None:
+        """Coordinator aborted ``step``: its staged image is never a base."""
+        with self._lock:
+            self._staged.pop(step, None)
 
     def _finish_job(self, job: PersistJob) -> None:
         """Common phase-2 epilogue: timing, buffer release, completion."""

@@ -14,8 +14,9 @@ restarts benefit: the params a server touches materialize on demand rather
 than stalling on the whole image.
 
 Proxy restart (``restore_into_proxy``) re-creates the device state inside
-a device proxy instead of this process. Not ported yet: ``restore_elastic``
-(the cluster slice).
+a device proxy instead of this process. Elastic restore
+(``restore_elastic``) re-slices a committed N-rank cluster image onto M
+ranks.
 """
 from __future__ import annotations
 
@@ -32,7 +33,13 @@ from repro_torch.checkpoint.manifest import (
     load_manifest,
     skeleton_fill,
 )
-from repro_torch.checkpoint.sharded import restore_leaf, verify_manifest
+from repro_torch.checkpoint.sharded import (
+    _LeafAssembler,
+    _placed,
+    host_slice_plan,
+    restore_leaf,
+    verify_manifest,
+)
 from repro_torch.checkpoint.store import ChunkStore
 from repro_torch.utils.timing import Timings
 
@@ -252,3 +259,61 @@ class RestoreManager:
                     device_state=state["device"], base_step=int(manifest.step)
                 )
         return state, manifest
+
+    # -- elastic reshard (restore onto a different rank count) ------------------
+    def restore_elastic(
+        self,
+        *,
+        n_hosts: int,
+        host: int | None = None,
+        step: int | None = None,
+        device: torch.device | str | None = None,
+        verify: bool = False,
+    ) -> tuple[Any, Manifest]:
+        """Re-slice a committed image across a different rank count.
+
+        The manifest is topology-independent (leaves are global arrays,
+        shards are index ranges), so a checkpoint written by N ranks
+        restores onto M: with ``host=None`` the full global state is
+        assembled (what each rank holds); with ``host=h`` only the windows
+        rank ``h`` of ``n_hosts`` *owns* are read — each assembled from
+        whichever stored shards overlap it and wrapped in a
+        :class:`~repro_torch.core.shadow.HostShardView` exactly as
+        ``shard_tree_for_host`` would produce it live. Non-divisible splits
+        (4 -> 3, 3 -> 5, N -> 1) need no special casing: ownership comes
+        from the same ``host_slice_plan`` rule the writers use. ``device``
+        places the leaves (or the windows' data) there; without one they
+        stay on the host as :meth:`restore` returns them.
+
+        Returns (state, manifest); in per-host mode the state's leaves are
+        HostShardViews ready to be persisted under the new topology.
+        """
+        from repro_torch.core.shadow import HostShardView
+
+        manifest = self._pick_manifest(step)
+        if verify:
+            with self.timings.measure("restore/verify"):
+                verify_manifest(self.store, manifest)
+        if host is None:
+            leaves = {
+                path: restore_leaf(self.store, lrec, device)
+                for path, lrec in manifest.leaves.items()
+            }
+            return skeleton_fill(manifest.skeleton, leaves), manifest
+        with self.timings.measure("restore/elastic"):
+            leaves = {}
+            for path, lrec in manifest.leaves.items():
+                shape = tuple(lrec.shape)
+                plan = host_slice_plan(path, shape, host, n_hosts)
+                if plan is None:
+                    leaves[path] = HostShardView(
+                        None, global_shape=shape, dtype=lrec.dtype
+                    )
+                    continue
+                start, stop = plan
+                data = _LeafAssembler(self.store, lrec).window(start, stop)
+                leaves[path] = HostShardView(
+                    _placed(data, device), start=start, stop=stop,
+                    global_shape=shape, dtype=lrec.dtype,
+                )
+        return skeleton_fill(manifest.skeleton, leaves), manifest

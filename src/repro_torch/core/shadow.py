@@ -35,8 +35,12 @@ all-chunks mark with its page-granular write history
 (``mark_device_step(marks)``): the marked chunks are fetched without a
 digest compare, and fused digests, when given, narrow them further.
 
-Leaves are tensors (one shard each: the whole leaf) or host values (numpy
-arrays and scalars). Byte views of tensors come from
+Leaves are tensors (one shard each: the whole leaf), host values (numpy
+arrays and scalars), or :class:`HostShardView` windows — the slice of a
+leaf one rank of a cluster persists (``repro_torch.coord``). A view's data
+is a torch view of the card tensor, so the window's digests join the same
+grouped ``chunk_digest`` launch as every other leaf of the sync and only
+its changed chunks cross to the host. Byte views of tensors come from
 ``t.reshape(-1).view(torch.uint8)`` (``utils.dtypes.byte_view``), because a
 dtype view refuses 0-d tensors.
 """
@@ -58,7 +62,7 @@ from repro_torch.checkpoint.chunking import (
     num_chunks,
 )
 from repro_torch.obs import trace as obs_trace
-from repro_torch.utils.dtypes import byte_view, leaf_nbytes
+from repro_torch.utils.dtypes import DTYPE_NAMES, byte_view, leaf_nbytes, torch_dtype
 from repro_torch.utils.timing import Timings
 from repro_torch.utils.tree import flatten_with_paths, leaf_bytes, unflatten_from_paths
 
@@ -106,6 +110,8 @@ class SyncStats:
     fetch_us: float = 0.0
     # chunks whose digest the step already supplied (no boundary scan)
     chunks_prehashed: int = 0
+    # which sync epoch produced this image (see begin_sync_epoch)
+    epoch: int = 0
 
     def merge(self, other: "SyncStats") -> None:
         self.chunks_total += other.chunks_total
@@ -131,11 +137,68 @@ class UploadStats:
     per_stream: dict[tuple[str, int], int] = field(default_factory=dict)
 
 
+class HostShardView:
+    """The global index window of a leaf that one rank owns and persists.
+
+    In the cluster every rank holds the full replicated state but
+    *persists* only its window (``checkpoint.sharded.host_slice_plan``).
+    ``shape`` and ``dtype`` describe the **global** leaf — what the merged
+    manifest records; ``data`` is this rank's window: a torch view of the
+    card tensor (a dim-0 window of a contiguous leaf is itself contiguous,
+    so nothing is copied), a numpy array, or None when the rank owns
+    nothing of the leaf (the owner's hostmeta supplies it at merge time).
+    ``dtype`` is a torch dtype when ``data`` is a tensor (or the type has
+    no numpy twin, bfloat16), else a numpy dtype; ``dtype_name`` is the
+    manifest's name for it either way.
+    """
+
+    __slots__ = ("data", "start", "stop", "_shape", "dtype_name")
+
+    def __init__(self, data, *, start=None, stop=None,
+                 global_shape=None, dtype=None):
+        if data is not None and not isinstance(data, torch.Tensor):
+            data = np.ascontiguousarray(data)
+        self.data = data
+        self.start = list(start) if start is not None else None
+        self.stop = list(stop) if stop is not None else None
+        if global_shape is None:
+            if data is None:
+                raise ValueError("unowned HostShardView needs global_shape")
+            global_shape = data.shape
+        self._shape = tuple(int(d) for d in global_shape)
+        if dtype is None:
+            if data is None:
+                raise ValueError("unowned HostShardView needs dtype")
+            dtype = data.dtype
+        if isinstance(dtype, torch.dtype):
+            self.dtype_name = DTYPE_NAMES[dtype]
+        else:
+            self.dtype_name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return self._shape
+
+    @property
+    def dtype(self):
+        if isinstance(self.data, torch.Tensor) or self.dtype_name == "bfloat16":
+            return torch_dtype(self.dtype_name)  # numpy has no bfloat16
+        return np.dtype(self.dtype_name)
+
+
 def _owned_host_shards(leaf: Any):
     """(ordinal, start, stop, data) for the shards this process owns.
 
-    A tensor is one shard: the whole leaf (the port runs on one card).
+    A tensor is one shard: the whole leaf (the port runs on one card); a
+    :class:`HostShardView` is its window, or nothing when unowned.
     """
+    if isinstance(leaf, HostShardView):
+        if leaf.data is None:
+            return []
+        ndim = len(leaf.data.shape)
+        start = leaf.start if leaf.start is not None else [0] * ndim
+        stop = leaf.stop if leaf.stop is not None else list(leaf.data.shape)
+        return [(0, list(start), list(stop), leaf.data)]
     if isinstance(leaf, torch.Tensor):
         return [(0, [0] * leaf.dim(), list(leaf.shape), leaf)]
     arr = np.asarray(leaf)
@@ -205,6 +268,9 @@ class ShadowStateManager:
         # a persist of the *previous* generation can be recognized and
         # dropped instead of installing stale digests into fresh streams
         self.generation = 0
+        # sync epochs: each begin_sync_epoch() names one step-boundary
+        # image, carried through SyncStats.epoch
+        self.sync_epoch = 0
 
     def _alloc_buffer(self, nbytes: int, key: tuple[str, int] | None = None) -> np.ndarray:
         if self.segment_factory is not None and key is not None:
@@ -325,10 +391,22 @@ class ShadowStateManager:
                 s.states[i] = ChunkState.HOST_DIRTY
 
     # -- sync (the read-fault path, batched) ------------------------------------
+    def begin_sync_epoch(self) -> int:
+        """Open a new sync epoch and return its number.
+
+        An epoch names one step-boundary image: the caller issues
+        ``begin_sync_epoch()`` at the boundary and runs ``sync(state,
+        epoch=...)`` against the boundary state, and the epoch rides the
+        sync's stats.
+        """
+        self.sync_epoch += 1
+        return self.sync_epoch
+
     def sync(
         self,
         state: Any,
         *,
+        epoch: int | None = None,
         device_digests: dict[str, list[int]] | None = None,
     ) -> SyncStats:
         """Bring the shadow up to date with the device; returns transfer stats.
@@ -345,7 +423,9 @@ class ShadowStateManager:
         ``device_digests`` ({path: per-chunk u64 digests}) are digests the
         step program already computed as a fused final pass: a listed path
         of the right chunk count skips the digest pass and compares the
-        supplied digests against the shadow's (``chunks_prehashed``).
+        supplied digests against the shadow's (``chunks_prehashed``); a
+        :class:`HostShardView` window never takes them (they index the
+        whole leaf's chunks, not the window's).
         """
         tr = obs_trace.get()
         t0 = time.perf_counter() if tr is not None else 0.0
@@ -360,12 +440,16 @@ class ShadowStateManager:
         if not self._registered or any(key not in self._streams for key, _ in shards):
             # first sync, or a new leaf appeared: register (all chunks dirty)
             self.register(state)
+        windows = {path for path, leaf in flat.items()
+                   if isinstance(leaf, HostShardView)}
         known = {}
         for key, _data in shards:
+            if key[0] in windows:
+                continue
             k = (device_digests or {}).get(key[0])
             if k is not None and len(k) == self._streams[key].n_chunks:
                 known[key] = [int(d) for d in k]
-        stats = SyncStats()
+        stats = SyncStats(epoch=epoch if epoch is not None else self.sync_epoch)
         digests = self._tensor_digests(
             [(key, data) for key, data in shards if key not in known], stats)
         for leaf in leaves:
@@ -374,7 +458,7 @@ class ShadowStateManager:
                     self._streams[key], data, digests.get(key), known.get(key)))
             stats.leaves += 1
         if tr is not None:
-            tr.complete("shadow.sync", t0,
+            tr.complete("shadow.sync", t0, epoch=stats.epoch,
                         chunks_fetched=stats.chunks_fetched,
                         bytes_fetched=stats.bytes_fetched,
                         prehashed=stats.chunks_prehashed)
@@ -592,7 +676,9 @@ class ShadowStateManager:
             stats.leaves_touched += 1
             with self.timings.measure("shadow/upload"):
                 new_flat[path] = self._upload_leaf(stream, leaf, dirty, stats)
-            pushed.append((stream, dirty, new_flat[path]))
+            out = new_flat[path]
+            pushed.append((stream, dirty,
+                           out.data if isinstance(out, HostShardView) else out))
         self._upload_digests(pushed)
         return unflatten_from_paths(treedef, new_flat), stats
 
@@ -602,7 +688,22 @@ class ShadowStateManager:
         buf = self._stream_buffer(stream)
         cb = self.chunk_bytes
         full = len(dirty) == stream.n_chunks
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, HostShardView):
+            # a rank's window: patch its bytes in place (a card view writes
+            # through into the replica it views), no rebuild
+            if leaf.data is not None:
+                data = leaf.data
+                target = (byte_view(data) if isinstance(data, torch.Tensor)
+                          else data.reshape(-1).view(np.uint8))
+                for i in dirty:
+                    lo, hi = i * cb, min(stream.nbytes, (i + 1) * cb)
+                    src = buf[lo:hi]
+                    if isinstance(data, torch.Tensor):
+                        target[lo:hi].copy_(torch.from_numpy(src))
+                    else:
+                        target[lo:hi] = src
+            out = leaf
+        elif isinstance(leaf, torch.Tensor):
             if full:
                 # everything dirty: rebuild straight from the shadow bytes
                 out = torch.empty(leaf.shape, dtype=leaf.dtype, device=leaf.device)

@@ -21,6 +21,17 @@ from repro_torch.utils.dtypes import byte_view
 from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
 
 
+def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the digest kernel takes it: contiguous and 4-byte aligned.
+
+    A view that is neither (a window of a 16-bit leaf starting at an odd
+    element, a transposed view) is copied into a fresh allocation first —
+    the bytes, and so the digests, are the same."""
+    if x.is_contiguous() and x.data_ptr() % 4 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def chunk_digests(x: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
     """Per-chunk digests of a tensor's byte stream -> (n_chunks, 2) int64.
 
@@ -31,7 +42,7 @@ def chunk_digests(x: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return _ref.chunk_digests_plain(x, chunk_bytes)
     if x.device.type == "cuda":
-        return _kernel.chunk_digests(x.contiguous(), chunk_bytes)
+        return _kernel.chunk_digests(_kernel_ready(x), chunk_bytes)
     raise ValueError(f"no chunk_digest kernel for device {x.device}")
 
 
@@ -54,7 +65,7 @@ def chunk_digest_table(xs: Sequence[torch.Tensor],
         table = torch.cat(parts) if parts else torch.zeros((0, 2), dtype=torch.int64)
         return table, tuple(bounds)
     if device.type == "cuda":
-        return _kernel.chunk_digest_table([x.contiguous() for x in xs], chunk_bytes)
+        return _kernel.chunk_digest_table([_kernel_ready(x) for x in xs], chunk_bytes)
     raise ValueError(f"no chunk_digest kernel for device {device}")
 
 

@@ -1,6 +1,8 @@
-"""Observability: per-process trace shards and one metrics registry.
+"""Observability: trace shards, one metrics registry, and the cluster's
+journal, watchdog, live metrics and leak audit.
 
-Copies of the reference's ``repro.obs.trace`` and ``repro.obs.metrics``;
-the shard and snapshot formats are the same, so the reference's reporter
-reads what the port writes. Both are off (and free) until enabled.
+Copies of the reference's ``repro.obs.{trace,metrics,journal,watch,live,
+leakcheck}``; the shard, snapshot and ``CLUSTER_LOG.jsonl`` formats are the
+same, so the reference's reporter and readers read what the port writes.
+Tracing and metrics are off (and free) until enabled.
 """

@@ -35,9 +35,13 @@ Causal contexts — ``{"trace", "span", "parent"}`` — name the span a frame's
 receiver emits (:func:`span_context`, :func:`child_span`), so a merged
 trace links the application's spans to the proxy work they caused. A frame
 carries one only while tracing is on: untraced frames stay byte-identical.
+:func:`root_span_id` derives a checkpoint round's root span id from its
+trace id alone, so the coordinator and every rank agree on the root with
+no exchange.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import random
@@ -55,6 +59,7 @@ __all__ = [
     "get",
     "ENV_DIR",
     "ENV_RUN",
+    "root_span_id",
     "new_span_id",
     "round_trace_id",
     "span_context",
@@ -74,6 +79,19 @@ def new_span_id() -> int:
 def round_trace_id(step: int) -> str:
     """The trace id naming checkpoint round ``step``'s causal tree."""
     return f"round:{int(step)}"
+
+
+def root_span_id(trace_id: str) -> int:
+    """Deterministic root span id for a trace (the reference's, copied).
+
+    Ranks reach a round boundary (and their proxies STEP toward it)
+    *before* the coordinator opens the round, so the root id cannot be
+    handed out over the wire — instead every process derives the same
+    63-bit id from the trace id alone and parents its top-level spans to
+    it with zero coordination.
+    """
+    h = hashlib.blake2s(trace_id.encode("utf-8"), digest_size=8).digest()
+    return (int.from_bytes(h, "big") & ((1 << 63) - 1)) | 1
 
 
 def span_context(

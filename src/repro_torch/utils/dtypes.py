@@ -40,9 +40,13 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def dtype_name(leaf: Any) -> str:
-    """The manifest dtype name of a tensor or a numpy-convertible leaf."""
+    """The manifest dtype name of a tensor, a numpy-convertible leaf, or a
+    leaf that names its own (``core.shadow.HostShardView``)."""
     if isinstance(leaf, torch.Tensor):
         return DTYPE_NAMES[leaf.dtype]
+    name = getattr(leaf, "dtype_name", None)
+    if isinstance(name, str):
+        return name
     return np.asarray(leaf).dtype.name
 
 

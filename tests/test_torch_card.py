@@ -378,6 +378,78 @@ def test_proxy_on_card_replays_bitwise(deterministic):
         r.close()
 
 
+def test_shard_windows_digest_on_card_in_one_grouped_launch(cuda):
+    """A rank's HostShardView windows are views of the card tensors (off
+    the 16-byte grid where a row is 308 bytes): one shadow sync digests
+    every owned window in one grouped launch, and the digests and fetched
+    bytes equal chunk_digest_np over the window's bytes."""
+    from repro_torch.checkpoint.chunking import chunk_digest_np
+    from repro_torch.coord.worker import shard_tree_for_host
+    from repro_torch.core.shadow import ShadowStateManager
+    from repro_torch.utils.tree import flatten_with_paths, leaf_bytes
+
+    g = torch.Generator().manual_seed(3)
+    host = {"w": torch.randn(333, 77, generator=g),
+            "e": torch.randn(50, 31, generator=g).to(torch.bfloat16),
+            "s": torch.tensor(3, dtype=torch.int32), "tiny": torch.randn(2, generator=g)}
+    card = {k: v.to(cuda) for k, v in host.items()}
+    cb = 1024
+    for n in (2, 3):
+        for h in range(n):
+            view = shard_tree_for_host(card, h, n)
+            owned = {p: v for p, v in flatten_with_paths(view)[0].items()
+                     if v.data is not None}
+            assert all(v.data.device.type == "cuda" for v in owned.values())
+            sh = ShadowStateManager(chunk_bytes=cb)
+            before = chunk_digest.chunk_digests.launches
+            sh.sync(view)
+            assert chunk_digest.chunk_digests.launches - before == 1
+            snap = sh.snapshot()
+            assert {p for p, _ in snap} == set(owned)
+            for (p, _), entry in snap.items():
+                raw = leaf_bytes(owned[p].data.cpu())
+                assert bytes(entry["data"]) == bytes(raw), p
+                assert entry["digests"] == [chunk_digest_np(raw[i : i + cb])
+                                            for i in range(0, max(raw.nbytes, 1), cb)], p
+
+
+def test_cluster_on_card_equals_inline(deterministic, tmp_path):
+    """Two ranks train torch_tiny on the card, rank 1 killed at step 4 and
+    restored from step 2: both finish on the bits of the same program run
+    inline on the card, the step-4 image holds them, and every rank makes
+    one chunk_digest launch per boundary for its provenance table and one
+    per shadow sync but a rank process's first (whose digests the persist
+    child backfills), none while it steps."""
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.coord import run_cluster
+    from repro_torch.coord.worker import state_digest
+    from repro_torch.core.restore import RestoreManager
+    from repro_torch.proxy import make_program
+
+    root = str(tmp_path / "cluster")
+    report = run_cluster(root=root, n_hosts=2, total_steps=4, ckpt_every=2,
+                         backend="fork", loop="torch", device="cuda",
+                         chunk_bytes=1 << 12, deadline_s=300.0,
+                         kill_host=1, kill_at_step=4)
+    assert report.lockstep() and report.restarts[1] == 1
+    assert [r.step for r in report.committed] == [2, 4]
+    prog = make_program({"name": "torch_tiny", "width": 64, "seed": 0, "device": "cuda"})
+    want = prog.on_restore(prog.init_state())
+    for s in range(1, 5):
+        want, _ = prog.step(want, s)
+    assert set(report.final_digests.values()) == {state_digest(want)}
+    image, _ = RestoreManager(ChunkStore(root)).restore(
+        step=4, device_for=lambda p, s: "cuda:0" if p.startswith("device/") else None)
+    assert tree_equal(image["device"], want)
+    # rank 0's first sync is at step 2; rank 1's respawn syncs first at 4
+    first = {(0, 2), (1, 2), (1, 4)}
+    for r, acks in zip(report.committed, report.acks):
+        for h, a in acks.items():
+            assert a["step_launches"] == {"chunk_digest": 0, "flash_attention": 0}
+            assert a["provenance_launches"] == 1
+            assert a["sync_launches"] == (0 if (h, r.step) in first else 1), (h, r.step)
+
+
 @pytest.mark.parametrize("policy", ["lru", "clock"])
 def test_managed_space_on_card_matches_cpu(cuda, policy):
     """One seeded sequence of device reads and writes, host loads and

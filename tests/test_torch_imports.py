@@ -80,3 +80,39 @@ def test_uvm_package_imports_alone():
         env={"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"}, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_BLOCKER = '''
+import sys
+
+class _Block:
+    """Refuse the reference, JAX and the packages the card's machine lacks."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes"):
+            raise ImportError(f"forbidden import in a port process: {name}")
+        return None
+
+sys.meta_path.insert(0, _Block())
+'''
+
+
+def test_cluster_processes_never_import_jax_or_reference(tmp_path):
+    """The cluster CLI with every forbidden package blocked in every
+    process it starts (launcher, spawned ranks, their proxies, fork
+    persist children): a 2-rank cluster with a killed, restored rank and
+    proxied ranks on torch_tiny still converges."""
+    (tmp_path / "sitecustomize.py").write_text(_BLOCKER)
+    env = {"PYTHONPATH": f"{tmp_path}:{PKG.parent}", "PATH": "/usr/bin:/bin"}
+    for runner in ("inline", "proxy"):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.cluster", "--hosts", "2",
+             "--steps", "4", "--ckpt-every", "2", "--loop", "torch",
+             "--device", "cpu", "--backend", "fork", "--device-runner", runner,
+             "--kill-host", "1", "--kill-at-step", "4",
+             "--ckpt-dir", str(tmp_path / runner)],
+            capture_output=True, text=True, env=env, timeout=240,
+        )
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        assert '"lockstep_converged": true' in proc.stdout
+        assert "forbidden import" not in proc.stderr
