@@ -43,7 +43,22 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    prefill, zeroed just before and read just after), 32 greedy tokens; an eager serve must give
    the same bits, and the 32 served logits must lie no further from the
    f32 model's than one bf16 forward over prompt + 31 served tokens (the
-   dense lowering) does (teacher forcing);
+   dense lowering) does (teacher forcing). ``[serve:proxy]``: the serve CLI
+   with ``--device-runner proxy`` on the same image at full width and
+   depth (lazy restore onto the CPU, batch 2, prompt 144, 32 generated
+   tokens: 175 proxied ``decode_arch`` steps; a prompt whose greedy tokens
+   are not all one token, so a misplaced or dropped token write shows), in
+   a child process that
+   must never create a CUDA context: once with a local proxy (segment
+   transport) SIGKILLed after step 80 is issued, which must restart once
+   and replay, once against a ``repro_torch.remote.host`` daemon on the
+   card (stream transport; raw frames where ``zstandard`` is missing). Both
+   runs' tokens and synced cache must equal ``decode_arch`` stepped inline
+   in this process from the same params bit for bit, each proxied step
+   must make one fused ``chunk_digest`` launch (counted in its session) and
+   no flash launch, and the final SYNC must move no params chunk. Printed
+   per run: push s, decode tok/s, recovery s, the proxy's step ms, the
+   sync's chunks and bytes and the wire bytes;
 6. each kernel's time on the card at its path's shapes (``chunk_digest``:
    one grouped call over the 43 leaves of the train state in 1 MiB chunks,
    the table's allocation included, as a sync makes it, beside the same
@@ -51,7 +66,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    layer of the prefill), its bound, the plain version's time and, for
    attention, ``scaled_dot_product_attention``'s (the kernel's ratio to it
    and its share of the bound on the ``[timing] flash`` line), printed as
-   one ``{"kernels": [...]}`` JSON line;
+   one ``{"kernels": [...]}`` JSON line, printed at the end with each
+   kernel's launches on every later path too (``launches_proxy``,
+   ``_uvm_inline``, ``_uvm_proxy``, ``_serve_proxy``, ``_cluster``,
+   ``_cluster_proxy``, ``_cluster_remote``: counted where they ran);
 7. the proxy path (``[proxy]``): qwen2-0.5b at full width and 4 of its
    24 layers (a cut for the script's time), batch 4, seq 512, 6 steps, a
    checkpoint every 2 steps, fork backend,
@@ -91,7 +109,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    managed state: a managed trainer resumed from step 6 checkpoints step 8
    forked and step 10 through ``save_sync`` (each the first sync of its
    buffer): ``forked_blocking_ms``, ``sync_ms``, ``speedup_vs_naive``.
-   ``[uvm:paged]``: the full-depth proxy program with the same budget in
+   ``[uvm:paged]``: the proxy program cut to 8 of its 24 layers (full
+   width; a cut for the script's time) with the same budget in
    a proxy process, 4 steps, checkpoints at 2 and 4, SIGKILLed once after
    step 3 is issued: one restart, ``paging`` in every SYNCED, one digest
    launch per step, no ``/dev/nvidia-uvm`` in the application, and its
@@ -125,7 +144,17 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    images at 2 and 4, the inline run's bits, each rank's proxy one fused
    digest launch per step (from its SYNCED, in the acks), and each round's
    provenance table (one rank's ack) equal to ``chunk_digest_np`` over the
-   inline replica;
+   inline replica. ``[cluster:remote]``: the same run with each rank's
+   proxy a session on one of 2 proxy-host daemons on the card that the
+   coordinator places it on (stream transport), daemon ph0 SIGKILLed after
+   the first commit: at least one rank must be rescheduled onto ph1, a
+   ``proxy_host_death`` alert journaled before a committed round, images
+   at 2 and 4 and the final digests equal to ``[cluster:proxy]``'s inline
+   run, every ack's provenance table equal to ``chunk_digest_np``, and
+   every ack must count exactly one digest launch per proxied step, though
+   ph1 then hosts both sessions. Printed: the placements, the moved ranks
+   and the reschedule latency (death reported to the moved rank's first
+   SYNCED on the survivor);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 Every phase ends with a ``[<phase>] wall_s=...`` line. It exits nonzero
@@ -623,6 +652,173 @@ def phase_serve(store: str) -> dict:
     return {"launches": launches}
 
 
+# [serve:proxy]: the serve CLI's decode_arch at full width and depth, the
+# step-6 params restored lazily; each step is one proxied decode step. From
+# the step-6 image the 128-token prompt decodes to token 0 alone in both rows
+# (the buffer's initial value, so a dropped write would not show); this one
+# decodes to more than one token
+SERVE_PROXY_PROMPT, SERVE_PROXY_KILL_AFTER = 144, 80
+SERVE_PROXY_SPEC = {"name": "decode_arch", "arch": ARCH, "smoke": False,
+                    "batch": SERVE_BATCH, "prompt_len": SERVE_PROXY_PROMPT,
+                    "gen": GEN, "device": "cuda"}
+
+
+def serve_child(cfg: dict) -> int:
+    """``repro_torch.launch.serve`` with ``--device-runner proxy`` (argv in
+    ``cfg["argv"]``) in a process that must never create a CUDA context;
+    with ``cfg["kill_after"]`` the proxy is SIGKILLed once after that step
+    is issued. Writes what it saw to ``cfg["out"]`` as JSON."""
+    from repro_torch.launch import serve
+    from repro_torch.proxy import ProxyRunner
+    from repro_torch.remote import transport
+    from repro_torch.utils.tree import tree_digest
+
+    killed, recoveries = [], []
+    step, close = ProxyRunner.step, ProxyRunner.close
+
+    def killing_step(self, n):
+        step(self, n)
+        if n == cfg.get("kill_after") and not killed:
+            killed.append(self.kill())
+
+    def recording_close(self):
+        recoveries.extend(self.recoveries)
+        close(self)
+
+    ProxyRunner.step, ProxyRunner.close = killing_step, recording_close
+    out = serve.serve(cfg["argv"])
+    info = out["info"]
+    res = {
+        "role": cfg["role"], "tokens": out["tokens"].tolist(),
+        "decoded_digest": tree_digest({"cache": out["cache"],
+                                       "toks": np.asarray(out["tokens"])}),
+        "restarts": out["restarts"], "push_s": out["push_s"],
+        "decode_s": out["decode_s"], "decode_tok_s": out["decode_tok_s"],
+        "chunks_synced": info["chunks_synced"], "bytes_synced": info["bytes_synced"],
+        "phase_us": info["phase_us"], "transport": info["transport"],
+        "killed_pid": killed[0] if killed else None,
+        "recoveries": [{k: r[k] for k in ("recovery_s", "replayed_steps")}
+                       for r in recoveries],
+        "zstd": transport._zstd() is not None,
+        "cuda_initialized": torch.cuda.is_initialized(),
+    }
+    with open(cfg["out"], "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_serve_proxy(store: str, card: str) -> dict:
+    """The serve CLI through a device proxy (``[serve:proxy]``): a local
+    segment proxy SIGKILLed once mid-decode, then a proxy-host daemon on the
+    card over the stream transport, each held bit for bit against the same
+    ``decode_arch`` stepped inline in this process from the same params."""
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.core import RestoreManager
+    from repro_torch.proxy import make_program
+    from repro_torch.remote.host import ProxyHostHandle
+    from repro_torch.utils.dtypes import leaf_nbytes
+    from repro_torch.utils.tree import flatten_with_paths, tree_digest
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    prog = make_program(SERVE_PROXY_SPEC)
+    P, steps = SERVE_PROXY_PROMPT, SERVE_PROXY_PROMPT + GEN - 1
+    meta = flatten_with_paths(prog.meta_state())[0]
+    clean = {p: t for p, t in meta.items() if not p.startswith("params/")}
+    clean_bytes = sum(leaf_nbytes(t) for t in clean.values())
+    clean_chunks = sum(-(-leaf_nbytes(t) // (1 << 20)) for t in clean.values())
+    state, _ = RestoreManager(ChunkStore(store)).restore(
+        step=STEPS, device_for=lambda p, s: cuda if p.startswith("device/params/") else None)
+    dstate = prog.on_restore(prog.init_state(state["device"]["params"]))
+    del state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in range(1, steps + 1):
+        dstate, _ = prog.step(dstate, n)
+    torch.cuda.synchronize()
+    inline_s = time.perf_counter() - t0
+    want = dstate["toks"][:, P:].cpu().numpy().tolist()
+    want_digest = tree_digest({"cache": dstate["cache"],
+                               "toks": dstate["toks"][:, P:].cpu().numpy()})
+    pos = int(dstate["cache"]["pos"])
+    distinct = len({t for row in want for t in row})
+    del dstate
+    torch.cuda.empty_cache()
+    print(f"[serve:proxy] {card} state_bytes={prog.state_nbytes()} "
+          f"clean_bytes={clean_bytes} (cache + toks) steps={steps} inline_decode_s="
+          f"{inline_s:.3f} inline_tok_s={steps * SERVE_BATCH / inline_s:.1f} "
+          f"inline_pos={pos} distinct_tokens={distinct}", flush=True)
+    if distinct < 2:
+        raise SystemExit("the inline decode gave one token throughout: the token "
+                         "check could not see a misplaced or dropped write")
+
+    argv = ["--arch", ARCH, "--ckpt-dir", store, "--lazy", "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(P), "--gen", str(GEN), "--device-runner", "proxy"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sproxy-") as tmp:
+        local = _run_proxy_child({"role": "local", "argv": argv,
+                                  "kill_after": SERVE_PROXY_KILL_AFTER,
+                                  "out": os.path.join(tmp, "local.json")}, 600,
+                                 flag="--serve-child")
+        daemon = ProxyHostHandle("serve-ph").start()  # on the card
+        try:
+            remote = _run_proxy_child(
+                {"role": "daemon", "argv": argv + ["--proxy-endpoint", "%s:%d" % daemon.addr],
+                 "out": os.path.join(tmp, "daemon.json")}, 600, flag="--serve-child")
+            daemon_context = _uvm_mapped(daemon.pid)
+        finally:
+            daemon.terminate()
+
+    launches = flash = 0
+    for run in (local, remote):
+        ph, tr, w = run["phase_us"], run["transport"], run["watch"]
+        rec = run["recoveries"]
+        rec_s = " ".join(f"{r['recovery_s']:.2f}" for r in rec) or "-"
+        print(f"[serve:proxy] {card} {run['role']} transport={tr['transport']} "
+              f"push_s={run['push_s']:.3f} (spawn or connect + upload) decode_s="
+              f"{run['decode_s']:.3f} decode_tok_s={run['decode_tok_s']:.1f} "
+              f"restarts={run['restarts']} recovery_s={rec_s} "
+              f"replayed_steps={[r['replayed_steps'] for r in rec]} "
+              f"proxy_step_ms={ph['step'] / 1e3 / max(ph['steps'], 1):.2f} "
+              f"steps={ph['steps']} digest_launches={ph['digest_launches']} "
+              f"flash_launches={ph['flash_launches']} chunks_synced={run['chunks_synced']} "
+              f"bytes_synced={run['bytes_synced']} wire_tx={tr['wire_tx']} "
+              f"raw_tx={tr['raw_tx']} wire_rx={tr['wire_rx']} raw_rx={tr['raw_rx']} "
+              f"zstd={'on' if run['zstd'] else 'absent: the stream runs raw'} "
+              f"tokens_equal_inline={run['tokens'] == want} cache_and_tokens_bitwise="
+              f"{run['decoded_digest'] == want_digest} watched {w['samples']} times: "
+              f"app_with_context={w['app_contexts']} "
+              f"proxy_with_context={w['proxy_contexts'] if run is local else daemon_context}",
+              flush=True)
+        if run["tokens"] != want or run["decoded_digest"] != want_digest:
+            raise SystemExit(f"{run['role']}: proxied tokens or cache differ from the "
+                             f"inline decode")
+        if run["cuda_initialized"] or w["app_contexts"]:
+            raise SystemExit(f"{run['role']}: the serving application created a CUDA "
+                             f"context: {run['cuda_initialized']} {w}")
+        if ph["steps"] != steps or ph["digest_launches"] != steps or ph["flash_launches"]:
+            raise SystemExit(f"{run['role']}: {ph['digest_launches']} digest and "
+                             f"{ph['flash_launches']} flash launches for {ph['steps']} "
+                             f"steps, want {steps}, {steps} and 0")
+        if run["chunks_synced"] > clean_chunks or not 0 < run["bytes_synced"] <= clean_bytes:
+            raise SystemExit(f"{run['role']}: the final sync moved {run['chunks_synced']} "
+                             f"chunks, {run['bytes_synced']} bytes: more than the cache "
+                             f"and toks ({clean_chunks}, {clean_bytes})")
+        launches += ph["digest_launches"]
+        flash += ph["flash_launches"]
+    if local["restarts"] != 1 or local["killed_pid"] is None or len(local["recoveries"]) != 1:
+        raise SystemExit(f"local proxy: restarts={local['restarts']} "
+                         f"recoveries={local['recoveries']}")
+    if not local["watch"]["proxy_contexts"]:
+        raise SystemExit("local proxy: the watch never saw the proxy's context")
+    if remote["restarts"] != 0 or remote["transport"]["transport"] != "stream":
+        raise SystemExit(f"daemon run: restarts={remote['restarts']} "
+                         f"transport={remote['transport']['transport']}")
+    if not daemon_context:
+        raise SystemExit("the proxy-host daemon holds no CUDA context")
+    if pos != steps:
+        raise SystemExit(f"the inline decode's cache/pos is {pos}, not {steps}")
+    return {"launches": {"chunk_digest": launches, "flash_attention": flash}}
+
+
 def _time_ms(fn, reps: int) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -749,12 +945,14 @@ def phase_flash_timing(serve_launches: int) -> dict:
     return row
 
 
-# [uvm:paged] trains this at full depth; [proxy] at PROXY_LAYERS of its 24
-# (full width), a cut for the script's time (PERF.md §4)
+# the full train program; [proxy] trains PROXY_LAYERS of its 24 layers and
+# [uvm:paged] PAGED_LAYERS (full width), cuts for the script's time
+# (PERF.md §4)
 UVM_SPEC = {"name": "train_arch", "arch": ARCH, "smoke": False, "batch": BATCH,
             "seq": SEQ, "lr": LR, "total_steps": STEPS, "device": "cuda"}
-PROXY_LAYERS = 4
+PROXY_LAYERS, PAGED_LAYERS = 4, 8
 PROXY_SPEC = dict(UVM_SPEC, num_layers=PROXY_LAYERS)
+PAGED_SPEC = dict(UVM_SPEC, num_layers=PAGED_LAYERS)
 PROXY_CHUNK = 1 << 20
 
 
@@ -899,15 +1097,16 @@ def _card_contexts() -> int:
     return sum(bool(line.strip()) for line in r.stdout.splitlines())
 
 
-def _run_proxy_child(cfg: dict, timeout: float) -> dict:
-    """One proxied application, watched from this process while it runs:
+def _run_proxy_child(cfg: dict, timeout: float, flag: str = "--proxy-child") -> dict:
+    """One proxied application (``proxy_child``, or ``serve_child`` with
+    ``flag="--serve-child"``), watched from this process while it runs:
     every half second, whether the application maps ``/dev/nvidia-uvm``
     (it must never), whether one of its descendants does (the proxy: this
     shows the check sees a context), and every few seconds how many
     contexts ``nvidia-smi`` lists (its PIDs are not this machine's, so the
     count is printed, not matched to a process)."""
     proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                             "--proxy-child", json.dumps(cfg)])
+                             flag, json.dumps(cfg)])
     watch = {"samples": 0, "app_contexts": 0, "proxy_contexts": 0, "smi_max": 0}
     deadline, smi_at = time.monotonic() + timeout, 0.0
     try:
@@ -1350,7 +1549,7 @@ def phase_uvm(card: str, unmanaged6) -> dict:
 
         # the same budget inside a proxy, killed once after step 3 is issued,
         # held against an inline managed run of the same program
-        prog = make_program(UVM_SPEC)
+        prog = make_program(PAGED_SPEC)
         pcap = train._resolve_capacity(UVM_CAPACITY, prog.state_nbytes())
         shm = os.statvfs("/dev/shm") if os.path.isdir("/dev/shm") else None
         workdir = None
@@ -1358,7 +1557,7 @@ def phase_uvm(card: str, unmanaged6) -> dict:
             workdir = os.path.join(tmp, "segments")
             os.makedirs(workdir)
         paged = _run_proxy_child({
-            "workdir": workdir, "spec": UVM_SPEC, "chunk": PROXY_CHUNK, "tag": "uvm",
+            "workdir": workdir, "spec": PAGED_SPEC, "chunk": PROXY_CHUNK, "tag": "uvm",
             "role": "paged", "kill_after": 3, "steps": 4, "capacity": pcap,
             "page_bytes": UVM_PAGE, "policy": "lru", "store": os.path.join(tmp, "paged"),
             "out": os.path.join(tmp, "paged.json")}, 900)
@@ -1393,7 +1592,8 @@ def phase_uvm(card: str, unmanaged6) -> dict:
               f"persist_ms={c['persist_ms']:.1f} stall_ms={c['stall_ms']:.1f} "
               f"synced={c['synced']}", flush=True)
     w = paged["watch"]
-    print(f"[uvm:paged] {card} capacity={pcap} startup_s={paged['startup_s']:.1f} "
+    print(f"[uvm:paged] {card} layers={PAGED_LAYERS} capacity={pcap} "
+          f"startup_s={paged['startup_s']:.1f} "
           f"run_s={paged['run_s']:.1f} restarts={paged['restarts']} "
           f"recoveries={paged['recoveries']} inline_managed_s={inline_s:.1f} "
           f"(launches there: {inline_counts['chunk_digest']} chunk_digest, "
@@ -1503,7 +1703,8 @@ def _cluster_rounds(tag: str, card: str, report) -> None:
 
 
 def phase_cluster(card: str) -> dict:
-    """The cluster path (``[cluster]``, then ``[cluster:proxy]``)."""
+    """The cluster path with inline ranks (``[cluster]``); returns each
+    kernel's launches in the ranks."""
     from repro_torch.checkpoint import ChunkStore
     from repro_torch.checkpoint.manifest import committed_steps
     from repro_torch.coord import run_cluster
@@ -1621,6 +1822,24 @@ def phase_cluster(card: str) -> dict:
     if launches != want:
         raise SystemExit(f"kernel launches per (rank, step), (step digest, step flash, "
                          f"provenance, sync): {launches}, want {want}")
+    return {"chunk_digest": sum(d + p + y for d, _, p, y in launches.values()),
+            "flash_attention": sum(f for _, f, _, _ in launches.values())}
+
+
+def phase_cluster_proxy(card: str) -> dict:
+    """Proxied ranks (``[cluster:proxy]``: local proxies; ``[cluster:remote]``:
+    sessions on proxy-host daemons, one SIGKILLed), held against one
+    inline run of their program in this process."""
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.checkpoint.manifest import committed_steps
+    from repro_torch.coord import run_cluster
+    from repro_torch.core import RestoreManager
+    from repro_torch.obs.journal import read_journal
+    from repro_torch.proxy import make_program
+    from repro_torch.utils.tree import tree_digest, tree_equal
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    on_card = lambda p, s: cuda if p.startswith("device/") else None  # noqa: E731
 
     # [cluster:proxy]: each rank hosts a local proxy that owns the card
     tag = "[cluster:proxy]"
@@ -1637,20 +1856,22 @@ def phase_cluster(card: str) -> dict:
         pprog = make_program(CLUSTER_PROXY_SPEC)
         pstate = pprog.on_restore(pprog.init_state())
         pby_step = dict(zip([r.step for r in prox.committed], prox.acks))
-        poracle = {}
+        poracle, ptables = {}, {}
         for step in range(1, 5):
             pstate, _ = pprog.step(pstate, step)
             if step % 2 == 0:
+                ptables[step] = _host_chunk_table(pstate, CLUSTER_CHUNK)
                 acked = pby_step[step][0].get("chunk_digests")
-                poracle[step] = acked == _host_chunk_table(pstate, CLUSTER_CHUNK)
+                poracle[step] = acked == ptables[step]
+        pdigest = tree_digest(pstate)
         image, _ = RestoreManager(ChunkStore(root)).restore(step=4, device_for=on_card)
-        psame = {"final_digests": set(prox.final_digests.values()) == {tree_digest(pstate)},
+        psame = {"final_digests": set(prox.final_digests.values()) == {pdigest},
                  "image": tree_equal(image["device"], pstate)}
         psteps = committed_steps(root)
         print(f"{tag} {card} cluster wall_s={pwall:.1f} state_bytes={pprog.state_nbytes()} "
               f"committed={psteps} lockstep={prox.lockstep()} bitwise={psame} "
               f"provenance vs chunk_digest_np {poracle}", flush=True)
-        del image, pstate
+        del image
         torch.cuda.empty_cache()
     if not prox.lockstep() or psteps != [2, 4] or \
             [r.step for r in prox.committed] != [2, 4] or not all(psame.values()):
@@ -1668,12 +1889,87 @@ def phase_cluster(card: str) -> dict:
     if plaunches != {k: (2, 0, 0, 0) for k in plaunches} or len(plaunches) != 4:
         raise SystemExit(f"proxied kernel launches per (rank, step), (step digest, step "
                          f"flash, provenance, sync): {plaunches}")
-    return {"launches": {
-        "chunk_digest": sum(d + p + y for d, _, p, y in launches.values()),
-        "flash_attention": sum(f for _, f, _, _ in launches.values())},
-        "launches_proxy": {
+
+    # [cluster:remote]: the same run with each rank's proxy a session on one
+    # of two proxy-host daemons on the card (stream transport), daemon ph0
+    # SIGKILLed after the first commit; held against [cluster:proxy]'s inline run
+    tag = "[cluster:remote]"
+    with _clock("cluster:remote"), \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-cremote-") as tmp:
+        root = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        rem = run_cluster(
+            root=root, n_hosts=2, total_steps=4, ckpt_every=2, backend="fork",
+            codec="none", chunk_bytes=CLUSTER_CHUNK, program=CLUSTER_PROXY_SPEC,
+            device="cuda", device_runner="proxy", proxy_hosts=2, kill_proxy_host=0,
+            kill_proxy_after_commits=1, deadline_s=600.0, round_timeout_s=300.0)
+        rwall = time.perf_counter() - t0
+        _cluster_rounds(tag, card, rem)
+        image, _ = RestoreManager(ChunkStore(root)).restore(step=4, device_for=on_card)
+        rsame = {"final_digests": set(rem.final_digests.values()) == {pdigest},
+                 "image": tree_equal(image["device"], pstate)}
+        del image
+        rsteps = committed_steps(root)
+        log = read_journal(rem.log_path)
+    del pstate
+    torch.cuda.empty_cache()
+    placed: dict[int, list[str]] = {}
+    for h, name in rem.proxy_placements:
+        placed.setdefault(h, []).append(name)
+    moved = sorted(h for h, names in placed.items() if len(set(names)) > 1)
+    reported = [e for e in log if e.event == "proxy_host_death"]
+    alert_i = next((i for i, e in enumerate(log)
+                    if e.event == "alert" and e.kind == "proxy_host_death"), None)
+    after = [] if alert_i is None else [
+        e.step for e in log[alert_i:] if e.event == "round" and e.status == "committed"]
+    # daemon death (first reported by a rank) to the first SYNCED of a
+    # moved rank's proxy on the survivor (its ack's wall clock)
+    death_t = min(e.t for e in reported) if reported else None
+    synced = [a["synced_wt"] for acks in rem.acks for h, a in acks.items()
+              if h in moved and death_t is not None and a["synced_wt"] > death_t]
+    reschedule_s = min(synced) - death_t if synced else None
+    rby_step = dict(zip([r.step for r in rem.committed], rem.acks))
+    roracle = {step: all(a.get("chunk_digests") == ptables[step] for a in acks.values())
+               for step, acks in rby_step.items()}
+    rlaunches = {(h, r.step): (a["step_launches"]["chunk_digest"],
+                               a["step_launches"]["flash_attention"],
+                               a["provenance_launches"], a["sync_launches"])
+                 for r, acks in zip(rem.committed, rem.acks) for h, a in acks.items()}
+    restarts = {(h, r.step): a["proxy_restarts"]
+                for r, acks in zip(rem.committed, rem.acks) for h, a in acks.items()}
+    print(f"{tag} {card} cluster wall_s={rwall:.1f} committed={rsteps} "
+          f"killed={rem.killed_proxy_hosts} placements={rem.proxy_placements} moved={moved} "
+          f"proxy_restarts per (rank, step)={restarts} death_reported_by="
+          f"{[(e.worker, e.name) for e in reported]} reschedule_s="
+          f"{'-' if reschedule_s is None else f'{reschedule_s:.2f}'} (death reported "
+          f"-> first SYNCED on the survivor) alerts={sorted(rem.alert_kinds())} "
+          f"committed_after_alert={after} lockstep={rem.lockstep()} bitwise={rsame} "
+          f"provenance vs chunk_digest_np {roracle}", flush=True)
+    if rem.killed_proxy_hosts != ["ph0"] or not moved:
+        raise SystemExit(f"remote cluster: killed {rem.killed_proxy_hosts}, placements "
+                         f"{rem.proxy_placements}: no rank moved to the survivor")
+    if "proxy_host_death" not in rem.alert_kinds() or not after:
+        raise SystemExit(f"remote cluster: alerts {rem.alert_kinds()}, rounds committed "
+                         f"after the proxy_host_death alert: {after}")
+    if not rem.lockstep() or rsteps != [2, 4] or not all(rsame.values()):
+        raise SystemExit(f"remote cluster: lockstep {rem.lockstep()} images {rsteps} "
+                         f"bitwise {rsame}")
+    if sorted(roracle) != [2, 4] or not all(roracle.values()):
+        raise SystemExit(f"a remote round's chunk digests disagree with chunk_digest_np: "
+                         f"{roracle}")
+    # one fused digest launch per proxied step in every ack, counted per
+    # session: exact though ph1 hosts both ranks' sessions after the kill
+    if rlaunches != {k: (2, 0, 0, 0) for k in rlaunches} or len(rlaunches) != 4:
+        raise SystemExit(f"remote kernel launches per (rank, step), (step digest, step "
+                         f"flash, provenance, sync): {rlaunches}")
+    if reschedule_s is None:
+        raise SystemExit("no moved rank's SYNCED came after the proxy-host death")
+    return {"launches_proxy": {
         "chunk_digest": sum(d for d, _, _, _ in plaunches.values()),
-        "flash_attention": sum(f for _, f, _, _ in plaunches.values())}}
+        "flash_attention": sum(f for _, f, _, _ in plaunches.values())},
+        "launches_remote": {
+        "chunk_digest": sum(d for d, _, _, _ in rlaunches.values()),
+        "flash_attention": sum(f for _, f, _, _ in rlaunches.values())}}
 
 
 def main() -> int:
@@ -1681,9 +1977,12 @@ def main() -> int:
     ap.add_argument("--codec", default="none",
                     help="checkpoint codec of the main path (default: none)")
     ap.add_argument("--proxy-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.proxy_child is not None:
         return proxy_child(json.loads(args.proxy_child))
+    if args.serve_child is not None:
+        return serve_child(json.loads(args.serve_child))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1708,6 +2007,8 @@ def main() -> int:
         del final_state
         with _clock("serve"):
             served = phase_serve(store)
+        with _clock("serve:proxy"):
+            served_proxy = phase_serve_proxy(store, card)
     with _clock("timing"):
         rows = [phase_timing(device_state, launches)]
     unmanaged6 = _cpu_tree(device_state)  # the [uvm] phase's reference
@@ -1725,12 +2026,15 @@ def main() -> int:
         row["launches_uvm_inline"] = uvm["launches_inline"][row["name"]]
         row["launches_uvm_proxy"] = uvm["launches_proxy"][row["name"]]
     with _clock("cluster"):
-        clustered = phase_cluster(card)
+        clustered = {"launches": phase_cluster(card)}
+        clustered.update(phase_cluster_proxy(card))
     # the cluster paths' own counts: the ranks' (and their proxies')
     # launches, counted in their processes and sent in their acks
     for row in rows:
+        row["launches_serve_proxy"] = served_proxy["launches"][row["name"]]
         row["launches_cluster"] = clustered["launches"][row["name"]]
         row["launches_cluster_proxy"] = clustered["launches_proxy"][row["name"]]
+        row["launches_cluster_remote"] = clustered["launches_remote"][row["name"]]
     print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

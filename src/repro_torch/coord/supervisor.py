@@ -41,6 +41,7 @@ class ClusterReport:
     # remote proxies: every worker->endpoint assignment in order (repeats
     # for a worker = it was rescheduled onto a survivor)
     proxy_placements: list[tuple[int, str]] = field(default_factory=list)
+    killed_proxy_hosts: list[str] = field(default_factory=list)
     # SLO watchdog output (Alert.as_dict() shapes, in emission order) —
     # drills assert on the kinds, launch.cluster prints/serializes them
     alerts: list[dict] = field(default_factory=list)
@@ -188,6 +189,10 @@ def run_cluster(
     stall_at_step: int | None = None,
     corrupt_host: int | None = None,
     corrupt_at_step: int | None = None,
+    proxy_hosts: int = 0,
+    proxy_transport: str = "stream",
+    kill_proxy_host: int | None = None,
+    kill_proxy_after_commits: int = 1,
     sweep: bool = True,
     obs_dir: str | None = None,
     watch_cfg=None,
@@ -199,13 +204,33 @@ def run_cluster(
 
     Every rank computes on ``device`` (the card unless the caller asks for
     the CPU) the step program of its ``loop``, or ``program`` — an explicit
-    step-program spec that overrides it. Blocks until every rank reports
-    FINISHED (ranks killed by injections are respawned and restored along
-    the way) and returns the report.
+    step-program spec that overrides it.
+
+    With ``proxy_hosts > 0`` (requires ``device_runner="proxy"``) the
+    launcher also spawns that many proxy-host daemons
+    (``repro_torch.remote.host``, on ``device``), registers their endpoints
+    with the coordinator, and every rank's device proxy is *placed* on one
+    of them over ``proxy_transport`` instead of being spawned locally.
+    ``kill_proxy_host`` SIGKILLs daemon #i once ``kill_proxy_after_commits``
+    rounds have committed — the cross-host failure drill: affected ranks
+    are rescheduled onto a survivor and their API logs replayed there.
+
+    Blocks until every rank reports FINISHED (ranks killed by injections
+    are respawned and restored along the way) and returns the report.
     """
+    if proxy_hosts and device_runner != "proxy":
+        raise ValueError("proxy_hosts needs device_runner='proxy'")
+    if kill_proxy_host is not None and not (
+        0 <= kill_proxy_host < proxy_hosts
+    ):
+        raise ValueError(
+            f"kill_proxy_host {kill_proxy_host} outside [0, {proxy_hosts})"
+        )
+    if kill_proxy_host is not None and proxy_hosts < 2:
+        raise ValueError("the proxy-host kill drill needs a survivor (>= 2)")
     if obs_dir:
-        # the launcher hosts the coordinator thread; ranks inherit the obs
-        # dir through the exported environment
+        # the launcher hosts the coordinator thread; ranks and proxy-host
+        # daemons inherit the obs dir through the exported environment
         obs_trace.enable(obs_dir, "launcher")
 
     coord = Coordinator(
@@ -229,6 +254,8 @@ def run_cluster(
             chunk_bytes=chunk_bytes, width=width, rows=rows,
             step_time_s=step_time_s, deadline_s=deadline_s,
         )
+        if proxy_hosts:
+            kw.update(proxy_placement="coord", proxy_transport=proxy_transport)
         if codec is not None:
             kw["codec"] = codec
         if device_capacity is not None:
@@ -252,6 +279,8 @@ def run_cluster(
     )
 
     coord_result: dict = {}
+    daemons: list = []
+    killed_proxy_hosts: list[str] = []
 
     def drive() -> None:
         try:
@@ -259,13 +288,38 @@ def run_cluster(
         except Exception as e:  # surfaced after the watch loop unblocks
             coord_result["error"] = e
 
+    def proxy_killer() -> None:
+        # the cross-host drill: wait for real progress (committed rounds
+        # prove proxies are serving traffic), then SIGKILL one daemon
+        while not coord.done.is_set():
+            if len(coord.committed_rounds()) >= kill_proxy_after_commits:
+                d = daemons[kill_proxy_host]
+                d.kill()
+                killed_proxy_hosts.append(d.name)
+                return
+            time.sleep(0.05)
+
     coord_thread = threading.Thread(target=drive, name="coordinator", daemon=True)
-    coord_thread.start()
-    sup.start()
     try:
+        if proxy_hosts:
+            from repro_torch.remote.host import ProxyHostHandle
+
+            for i in range(proxy_hosts):
+                d = ProxyHostHandle(f"ph{i}", device=device)
+                daemons.append(d)
+                d.start()
+                coord.register_proxy_endpoint(d.name, *d.addr)
+        coord_thread.start()
+        if kill_proxy_host is not None:
+            threading.Thread(
+                target=proxy_killer, name="proxy-killer", daemon=True
+            ).start()
+        sup.start()
         sup.watch(coord.done, deadline_s=deadline_s)
     finally:
         sup.terminate()
+        for d in daemons:
+            d.terminate()
     coord_thread.join(timeout=30)
     if "error" in coord_result:
         raise coord_result["error"]
@@ -281,6 +335,7 @@ def run_cluster(
         log_path=coord.log_path,
         swept_dirs=swept,
         proxy_placements=list(coord.placement.history),
+        killed_proxy_hosts=killed_proxy_hosts,
         alerts=[a.as_dict() for a in coord.alerts],
         acks=list(coord.committed_acks),
     )

@@ -87,7 +87,8 @@ class WorkerConfig:
     # repro_torch.configs architecture, smoke-sized)
     loop: str = "numpy"
     device_runner: str = "inline"  # "inline" | "proxy" (per-rank proxy process)
-    proxy_transport: str = "segment"   # "segment" (shared) | "stream"
+    proxy_transport: str = "segment"   # "segment" (shared) | "stream" (remote)
+    proxy_placement: str = "local"     # "local" spawn | "coord" (PROXY_ENDPOINT)
     width: int = 64                # numpy state width / torch_tiny d_model
     rows: int | None = None        # numpy state rows; None = n_hosts-derived
     #                                (pin it for elastic restarts: the state
@@ -236,9 +237,9 @@ def _resolve_capacity(spec: str, spec_dict: dict) -> int:
     """``"50%"`` of the program's state bytes, or absolute bytes."""
     s = spec.strip()
     if s.endswith("%"):
-        from repro_torch.proxy.programs import make_program
+        from repro_torch.proxy.programs import host_program
 
-        nbytes = make_program(spec_dict).state_nbytes()
+        nbytes = host_program(spec_dict).state_nbytes()
         return max(1, int(nbytes * float(s[:-1]) / 100.0))
     return int(s)
 
@@ -281,6 +282,10 @@ class _InlineLoop:
         out, self._window = self._window, dict.fromkeys(self._window, 0)
         return out
 
+    def ack_fields(self) -> dict:
+        """Extra PERSIST_DONE fields of this loop (none inline)."""
+        return {}
+
     def digest(self, state) -> str:
         return state_digest(state["device"])
 
@@ -301,8 +306,9 @@ class _InlineLoop:
 
 
 class _ProxyLoop:
-    """Host the step program in a supervised device-proxy process, spawned
-    locally (remote placement on proxy-host daemons is not ported yet).
+    """Host the step program in a supervised device-proxy process: spawned
+    locally (``proxy_placement="local"``) or a session on the proxy-host
+    daemon the coordinator places this rank on (``"coord"``).
 
     The rank stays device-clean: ``state["device"]`` is a host mirror
     refreshed by ``materialize()`` at persist boundaries and FINISHED; the
@@ -320,12 +326,28 @@ class _ProxyLoop:
         self.last_digest: str | None = None
         self.last_chunk_digests: dict[str, list[int]] | None = None
         self.last_phase: dict = {}
+        self.synced_wt: float | None = None
         # segments/API log live under the cluster root: a drill that
         # hard-exits this rank (os._exit) skips close(), and files under the
         # root are reclaimed with it — a respawned incarnation reuses the
         # same directory instead of leaking RAM-backed segments
         workdir = os.path.join(cfg.root, f"proxy-h{cfg.host:04d}")
         os.makedirs(workdir, exist_ok=True)
+        provider = None
+        if cfg.proxy_placement == "coord":
+            # remote proxies: the coordinator assigns a proxy host (and a
+            # survivor after a proxy-host death) via the PROXY_ENDPOINT
+            # side channel — never this rank's barrier connection
+            from repro_torch.remote.placement import CoordEndpointProvider
+
+            provider = CoordEndpointProvider(
+                (cfg.coord_host, cfg.coord_port), cfg.host,
+                timeout_s=cfg.deadline_s,
+            )
+        elif cfg.proxy_placement != "local":
+            raise ValueError(
+                f"unknown proxy_placement {cfg.proxy_placement!r}"
+            )
         extra = {}
         if cfg.device_capacity is not None:
             extra["device_capacity_bytes"] = _resolve_capacity(
@@ -339,6 +361,7 @@ class _ProxyLoop:
             op_timeout_s=cfg.persist_timeout_s,
             transport=cfg.proxy_transport,
             fused_digests=True,
+            endpoint_provider=provider,
             **extra,
         )
 
@@ -359,6 +382,7 @@ class _ProxyLoop:
 
     def materialize(self, state):
         state["device"], info = self.runner.sync_state()
+        self.synced_wt = time.time()
         # the proxy already digested the state during sync — keep it so
         # the persist ack's divergence check costs nothing extra here
         self.last_digest = info.get("digest")
@@ -371,6 +395,11 @@ class _ProxyLoop:
         ``materialize()`` synced (its SYNCED ``phase_us``)."""
         return {"chunk_digest": int(self.last_phase.get("digest_launches", 0)),
                 "flash_attention": int(self.last_phase.get("flash_launches", 0))}
+
+    def ack_fields(self) -> dict:
+        """When the boundary's SYNCED arrived (wall clock) and the proxy's
+        restarts so far: a reschedule's latency is read from them."""
+        return {"synced_wt": self.synced_wt, "proxy_restarts": self.runner.restarts}
 
     def digest(self, state) -> str:
         return self.last_digest or state_digest(state["device"])
@@ -553,7 +582,8 @@ def worker_entry(cfg: WorkerConfig) -> int:
                 # proxy runner: pull the device mirror current before the
                 # barrier — the persisted shards must reflect this step
                 state = loop.materialize(state)
-                launches = {"step_launches": loop.window_launches()}
+                launches = {"step_launches": loop.window_launches(),
+                            **loop.ack_fields()}
                 t0 = time.perf_counter()
                 digest = loop.digest(state)
                 digest_s = time.perf_counter() - t0
@@ -674,7 +704,8 @@ def _persist_shards(conn, cfg: WorkerConfig, ck, state, step: int,
         extra["chunk_digests"] = chunk_digests
     # kernel launches on this rank's device path: the window's steps (per
     # kernel; a proxied rank's from its proxy's SYNCED), this boundary's
-    # provenance table and this attempt's shadow sync
+    # provenance table and this attempt's shadow sync (and a proxied rank's
+    # SYNCED wall time and proxy restarts, ``ack_fields``)
     extra.update(launches, sync_launches=sync_launches)
     conn.send(
         MSG_PERSIST_DONE,

@@ -29,6 +29,20 @@ UNIT_BYTES = 64 << 10  # bytes of one chunk per work unit: the source's kUnitByt
 
 _lib_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_thread = threading.local()  # this thread's launches (thread_launches)
+
+
+def thread_launches() -> int:
+    """The kernel's launches made by the calling thread so far: a proxy
+    session counts its own steps' launches by it while other sessions of
+    the same daemon launch on their threads."""
+    return getattr(_thread, "launches", 0)
+
+
+def _count(n: int) -> None:
+    """Count ``n`` launches just made, in all and in the calling thread."""
+    chunk_digests.launches += n
+    _thread.launches = thread_launches() + n
 
 
 def build() -> Path:
@@ -176,7 +190,8 @@ def chunk_digest_table(tensors: Sequence[torch.Tensor],
 
     Takes contiguous, 4-byte-aligned CUDA tensors of one device and raises on
     anything else. One launch per :data:`CAPACITY` non-empty tensors (none
-    when all are empty); ``chunk_digests.launches`` counts them.
+    when all are empty); ``chunk_digests.launches`` counts them, and
+    :func:`thread_launches` the calling thread's.
     """
     device = _check(tensors)
     nbytes = [x.numel() * x.element_size() for x in tensors]
@@ -186,7 +201,7 @@ def chunk_digest_table(tensors: Sequence[torch.Tensor],
     out = torch.zeros((plan.bounds[-1], 2), dtype=torch.int64, device=device)
     if plan.groups:
         _launch(plan, out)
-        chunk_digests.launches += len(plan.groups)
+        _count(len(plan.groups))
     return out, plan.bounds
 
 

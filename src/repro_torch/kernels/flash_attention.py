@@ -32,6 +32,13 @@ _MAX_STRIDE_BYTES = 1 << 40  # TMA's limit on a tensor map's byte strides
 
 _lib_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_thread = threading.local()  # this thread's launches (thread_launches)
+
+
+def thread_launches() -> int:
+    """The kernel's launches made by the calling thread so far (a proxy
+    session's own, in a daemon that serves several)."""
+    return getattr(_thread, "launches", 0)
 
 
 def build() -> Path:
@@ -144,7 +151,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     unit stride in D and, for bfloat16 and float16, the layout TMA reads
     (:func:`tensor_map`); raises on anything else. Its own tiling needs no
     divisibility of Sq or Sk. ``flash_attention.launches`` counts launches,
-    ``flash_attention.launches_by_route`` counts them per route.
+    ``flash_attention.launches_by_route`` counts them per route and
+    :func:`thread_launches` the calling thread's.
     """
     ts = (q, k, v)
     if not all(isinstance(t, torch.Tensor) and t.device.type == "cuda" for t in ts):
@@ -176,6 +184,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[r] += 1
+    _thread.launches = thread_launches() + 1
     return out
 
 

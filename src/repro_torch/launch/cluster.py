@@ -30,6 +30,14 @@ injections exercise the recovery paths end to end:
     PYTHONPATH=src python -m repro_torch.launch.cluster \\
         --hosts 2 --steps 6 --corrupt-host 1 --corrupt-at-step 4
 
+    # remote proxies: each rank's proxy is a session on one of 2 proxy-host
+    # daemons the coordinator places it on; daemon 0 is SIGKILLed after the
+    # first commit and its ranks are rescheduled onto daemon 1 (API-log
+    # replay), converging to the unkilled run's bits
+    PYTHONPATH=src python -m repro_torch.launch.cluster --hosts 2 --steps 6 \\
+        --ckpt-every 2 --loop numpy --device cpu --device-runner proxy \\
+        --proxy-hosts 2 --kill-proxy-host 0
+
     # ELASTIC restart: run 4 hosts to step 4, then restore the committed
     # 4-host image onto 6 hosts and continue to step 8 (the manifest is
     # topology-independent; shards re-slice onto any count)
@@ -107,6 +115,20 @@ def main(argv=None) -> int:
                          "given step (divergence-provenance drill: the "
                          "watchdog must name the first forked chunk)")
     ap.add_argument("--corrupt-at-step", type=int, default=None)
+    # remote proxies
+    ap.add_argument("--proxy-hosts", type=int, default=0,
+                    help="place rank proxies on this many proxy-host "
+                         "daemons via the coordinator (needs --device-runner "
+                         "proxy); 0 = spawn proxies locally")
+    ap.add_argument("--proxy-transport", choices=["segment", "stream"],
+                    default="stream",
+                    help="data plane for placed proxies: stream = chunk "
+                         "frames over TCP (cross-host); segment = shared "
+                         "files (same machine only)")
+    ap.add_argument("--kill-proxy-host", type=int, default=None,
+                    help="SIGKILL proxy-host daemon #i mid-run (reschedule "
+                         "drill; needs --proxy-hosts >= 2)")
+    ap.add_argument("--kill-proxy-after-commits", type=int, default=1)
     # elastic restart
     ap.add_argument("--hosts-after-restart", type=int, default=None,
                     help="after --restart-at-step, restore the committed "
@@ -153,6 +175,8 @@ def main(argv=None) -> int:
         sweep=not args.no_sweep,
         obs_dir=args.obs_dir,
         abort_on_critical=args.abort_on_critical,
+        proxy_hosts=args.proxy_hosts,
+        proxy_transport=args.proxy_transport,
     )
 
     if args.restart_at_step is not None and args.hosts_after_restart is None:
@@ -165,7 +189,7 @@ def main(argv=None) -> int:
         drills = [
             args.kill_host, args.kill_at_step, args.die_after_persist_host,
             args.die_after_persist_step, args.straggle_host, args.stall_host,
-            args.corrupt_host,
+            args.kill_proxy_host, args.corrupt_host,
         ]
         if any(d is not None for d in drills) or args.straggle_s or args.stall_s:
             # refusing beats silently running both phases without the
@@ -207,6 +231,8 @@ def main(argv=None) -> int:
             stall_at_step=args.stall_at_step,
             corrupt_host=args.corrupt_host,
             corrupt_at_step=args.corrupt_at_step,
+            kill_proxy_host=args.kill_proxy_host,
+            kill_proxy_after_commits=args.kill_proxy_after_commits,
             **common,
         )
         n_hosts_final = args.hosts
@@ -242,6 +268,8 @@ def main(argv=None) -> int:
         expected_kinds.add("worker_death")
     if args.straggle_host is not None and args.straggle_s:
         expected_kinds.add("straggler")
+    if args.kill_proxy_host is not None:
+        expected_kinds.add("proxy_host_death")
     corrupt_drill = (args.corrupt_host is not None
                      and args.corrupt_at_step is not None)
     if corrupt_drill:
@@ -260,6 +288,11 @@ def main(argv=None) -> int:
         "alerts": report.alerts,
         "alert_kinds": sorted(report.alert_kinds()),
     }
+    if args.proxy_hosts:
+        summary["proxy_placements"] = [
+            [w, n] for w, n in report.proxy_placements
+        ]
+        summary["killed_proxy_hosts"] = report.killed_proxy_hosts
     print(json.dumps(summary, indent=2))
 
     if corrupt_drill:

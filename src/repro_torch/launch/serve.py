@@ -14,9 +14,21 @@ card is the hand-written flash kernel, in every layer.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --smoke --device cpu --ckpt-dir /tmp/ck --prompt-len 128 --gen 8
 
-Not ported: ``--device-runner proxy`` (decode in a device proxy, with
-``--proxy-endpoint``/``--transport``) raises; only dense text archs serve,
-as ``models.build`` decides.
+With ``--device-runner proxy`` decode executes in a device-proxy process
+via the ``decode_arch`` step program — and with ``--proxy-endpoint`` that
+proxy is a *remote* one, served by a ``repro_torch.remote.host`` daemon
+over the streamed chunk transport. This process restores the params onto
+the CPU and never creates a CUDA context: the params ride the data plane
+once, then the final SYNC moves only the chunks decode dirtied
+(cache/toks), never the clean params. ``--device`` names the proxy's
+device.
+
+    PYTHONPATH=src python -m repro_torch.remote.host --port 7070  # machine B
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+        --ckpt-dir /tmp/ckpt --lazy --device-runner proxy \\
+        --proxy-endpoint 127.0.0.1:7070                           # machine A
+
+Only dense text archs serve, as ``models.build`` decides.
 """
 from __future__ import annotations
 
@@ -47,11 +59,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device-runner", choices=["inline", "proxy"], default="inline",
-                    help="inline: decode in-process; proxy: not ported yet")
+                    help="proxy: decode in a device-proxy process "
+                         "(decode_arch step program)")
     ap.add_argument("--proxy-endpoint", default=None, metavar="HOST:PORT",
-                    help="remote proxy-host daemon: not ported yet")
+                    help="connect to a remote proxy-host daemon instead of "
+                         "spawning a local proxy (implies the streamed "
+                         "transport)")
     ap.add_argument("--transport", choices=["segment", "stream"], default=None,
-                    help="proxy data plane: not ported yet")
+                    help="proxy data plane (default: stream when "
+                         "--proxy-endpoint is given, else segment)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     return ap.parse_args(argv)
@@ -100,12 +116,13 @@ def _sync(device: torch.device) -> None:
 def serve(argv=None) -> dict:
     """Run the CLI. Returns the generated tokens (B, gen), their logits
     (B, gen, V) f32 on the device, the prompt, the params, the restored
-    step (None on a fresh init), and restore s, TTFT s and decode tok/s."""
+    step (None on a fresh init), and restore s, TTFT s and decode tok/s;
+    with ``--device-runner proxy``, what :func:`_serve_proxy` returns."""
     args = parse_args(argv)
-    if args.device_runner != "inline" or args.proxy_endpoint or args.transport:
-        raise NotImplementedError(
-            "--device-runner proxy (--proxy-endpoint, --transport) is not ported yet"
-        )
+    if args.device_runner == "proxy":
+        return _serve_proxy(args)
+    if args.proxy_endpoint or args.transport:
+        raise ValueError("--proxy-endpoint and --transport need --device-runner proxy")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # the same tokens run to run: cuBLAS reads the variable when the
@@ -157,6 +174,83 @@ def serve(argv=None) -> dict:
     return {"tokens": tokens, "logits": torch.stack(outs_logits, dim=1),
             "prompt": prompt, "params": params, "step": step,
             "restore_s": restore_s, "ttft_s": ttft, "decode_tok_s": decode_tok_s}
+
+
+def _serve_proxy(args) -> dict:
+    """Decode through a (possibly remote) device proxy. Returns the
+    generated tokens (B, gen), the synced cache, the prompt, the restored
+    step (None on a fresh init), push s, decode tok/s, the proxy's
+    restarts and the final sync's info (``chunks_synced``, ``phase_us``,
+    ``transport``...)."""
+    from repro_torch.proxy import ProxyRunner, host_program
+    from repro_torch.proxy.programs import _program_device
+    from repro_torch.remote.transport import endpoint_arg
+    from repro_torch.utils.tree import flatten_with_paths
+
+    spec = {
+        "name": "decode_arch", "arch": args.arch, "smoke": bool(args.smoke),
+        "batch": args.batch, "prompt_len": args.prompt_len, "gen": args.gen,
+        "device": args.device,
+    }
+    provider = None
+    if args.proxy_endpoint:
+        ep = endpoint_arg(args.proxy_endpoint)
+        provider = lambda failed=False: ep  # noqa: E731 — static placement
+    else:
+        # a local proxy computes on this machine: refuse an absent card
+        # before the spawn (a daemon checks its own at PROGRAM)
+        _program_device(args.device)
+    transport = args.transport or ("stream" if args.proxy_endpoint else "segment")
+    prog = host_program(spec)  # the layout and host init; no device here
+    step = None
+    if args.ckpt_dir:
+        t0 = time.perf_counter()
+        # on the CPU: this process never creates a CUDA context
+        params, step = _restore_params(args, torch.device("cpu"))
+        print(f"[serve] restored step {step} in {time.perf_counter() - t0:.3f}s "
+              f"(lazy={args.lazy})")
+        want = set(flatten_with_paths(prog.meta_state()["params"])[0])
+        have = set(flatten_with_paths(params)[0])
+        if want - have:
+            raise SystemExit(f"checkpoint lacks params for {sorted(want - have)[:3]}...")
+        init = prog.init_state(params)
+        del params
+    else:
+        init = prog.init_state()
+
+    runner = ProxyRunner(spec, transport=transport, endpoint_provider=provider,
+                         chunk_bytes=1 << 20, fused_digests=True)
+    t0 = time.perf_counter()
+    runner.start(device_state=init)
+    push_s = time.perf_counter() - t0
+    del init
+    print(f"[serve] proxy={args.proxy_endpoint or 'local'} transport={transport} "
+          f"device={args.device} state pushed in {push_s:.3f}s", flush=True)
+    try:
+        total = args.prompt_len + args.gen
+        t1 = time.perf_counter()
+        for n in range(1, total):
+            runner.step(n)
+        state, info = runner.sync_state()
+        dt = time.perf_counter() - t1
+        restarts = runner.restarts
+    finally:
+        runner.close()
+    pos = int(state["cache"]["pos"])
+    if pos != total - 1:
+        raise RuntimeError(f"the proxy's cache/pos is {pos} after {total - 1} steps")
+    tokens = np.asarray(state["toks"])[:, args.prompt_len:]
+    decode_tok_s = (total - 1) * args.batch / max(dt, 1e-9)
+    print(f"[serve] decoded {total - 1} steps in {dt:.3f}s "
+          f"({decode_tok_s:.1f} tok/s, restarts={restarts})")
+    tstats = info.get("transport", {})
+    print(f"[serve] sync wire: chunks={info.get('chunks_synced')} "
+          f"bytes={info.get('bytes_synced')} "
+          f"wire_rx={tstats.get('wire_rx')} (params stay clean)")
+    print(f"[serve] sample tokens: {tokens[:, 0].tolist()}")
+    return {"tokens": tokens, "cache": state["cache"], "prompt": prog.prompt(), "step": step,
+            "push_s": push_s, "decode_s": dt, "decode_tok_s": decode_tok_s,
+            "restarts": restarts, "info": info}
 
 
 def main(argv=None) -> int:

@@ -12,6 +12,7 @@ from repro_torch.proxy.api_log import ApiLog, iter_records
 from repro_torch.proxy.client import DeviceProxy
 from repro_torch.proxy.programs import (
     StepProgram,
+    host_program,
     list_step_programs,
     make_program,
     register_step_program,
@@ -31,7 +32,7 @@ __all__ = [
     "DeviceProxy", "ProxyDiedError", "ProxyServiceConfig",
     "StateTable", "PrivateTable",
     "SegmentTable", "SharedSegment", "default_segment_dir",
-    "StepProgram", "make_program", "register_step_program",
+    "StepProgram", "host_program", "make_program", "register_step_program",
     "list_step_programs",
     "ProxyRunner",
 ]

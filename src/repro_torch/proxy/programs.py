@@ -16,11 +16,13 @@ Built-ins:
                 twin of the reference's ``jax_tiny``)
     train_arch  a real config from ``repro_torch.configs``
                 (``launch/train.py --device-runner proxy``)
+    decode_arch greedy batched decode of such a config
+                (``launch/serve.py --device-runner proxy``)
 
 The torch programs take ``device`` in their spec (``"cuda"`` by default,
 raising when there is no card). Their ``init_state`` runs on the host with
-an explicit generator — the application builds it without touching the
-card — while the proxy allocates :meth:`StepProgram.empty_state` on its
+an explicit generator — the application builds it through
+:func:`host_program`, without the card and without needing one — while the proxy allocates :meth:`StepProgram.empty_state` on its
 device and lets the UPLOAD fill it, so no incarnation draws an init that
 the upload overwrites anyway.
 """
@@ -110,6 +112,19 @@ def make_program(spec: dict[str, Any]) -> StepProgram:
     return factory(**spec)
 
 
+def host_program(spec: dict[str, Any]) -> StepProgram:
+    """The program as the application builds it: its layout, size and host
+    init, never its device. A torch program is built for the CPU here, so
+    an application without a card can ship a ``cuda`` spec to a proxy on
+    another machine; only the process that computes (the proxy at PROGRAM,
+    an inline loop) checks the spec's device, through :func:`make_program`.
+    """
+    factory = _PROGRAMS.get(spec.get("name"))
+    if isinstance(factory, type) and issubclass(factory, _TorchProgram):
+        spec = dict(spec, device="cpu")
+    return make_program(spec)
+
+
 # -- built-ins -----------------------------------------------------------------
 
 class NumpySGD(StepProgram):
@@ -156,7 +171,37 @@ def _program_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-class TorchTrain(StepProgram):
+class _TorchProgram(StepProgram):
+    """A torch program's device handling: ``self.device`` and
+    ``meta_state()`` (the state's structure on the meta device) give the
+    proxy's empty state, the restore placement and the state's size."""
+
+    device: torch.device
+
+    def meta_state(self):
+        raise NotImplementedError
+
+    def empty_state(self):
+        flat, treedef = flatten_with_paths(self.meta_state())
+        return unflatten_from_paths(treedef, {
+            p: torch.empty(t.shape, dtype=t.dtype, device=self.device)
+            for p, t in flat.items()
+        })
+
+    def on_restore(self, d):
+        flat, treedef = flatten_with_paths(d)
+        return unflatten_from_paths(treedef, {
+            p: (leaf if isinstance(leaf, torch.Tensor)
+                else torch.from_numpy(np.array(leaf))).to(self.device)
+            for p, leaf in flat.items()
+        })
+
+    def state_nbytes(self) -> int:
+        flat, _ = flatten_with_paths(self.meta_state())
+        return sum(leaf_nbytes(t) for t in flat.values())
+
+
+class TorchTrain(_TorchProgram):
     """A model of ``repro_torch.models`` trained by ``make_train_step``.
 
     State ``{"params", "opt", "step"}`` with the reference's paths; the
@@ -203,29 +248,10 @@ class TorchTrain(StepProgram):
         storage and no random draws."""
         return self._state(self.model.init(torch.Generator(), device="meta"), "meta")
 
-    def empty_state(self):
-        flat, treedef = flatten_with_paths(self.meta_state())
-        return unflatten_from_paths(treedef, {
-            p: torch.empty(t.shape, dtype=t.dtype, device=self.device)
-            for p, t in flat.items()
-        })
-
     def step(self, d, step):
         b = {k: torch.from_numpy(v).to(self.device) for k, v in self.batch_at(step).items()}
         d2, metrics = self.step_fn(d, b)
         return d2, {"loss": float(metrics["loss"])}
-
-    def on_restore(self, d):
-        flat, treedef = flatten_with_paths(d)
-        return unflatten_from_paths(treedef, {
-            p: (leaf if isinstance(leaf, torch.Tensor)
-                else torch.from_numpy(np.array(leaf))).to(self.device)
-            for p, leaf in flat.items()
-        })
-
-    def state_nbytes(self) -> int:
-        flat, _ = flatten_with_paths(self.meta_state())
-        return sum(leaf_nbytes(t) for t in flat.values())
 
 
 class TorchTiny(TorchTrain):
@@ -266,6 +292,96 @@ class TrainArch(TorchTrain):
                          batch=batch, seq=seq, seed=seed, device=device)
 
 
+class DecodeArch(_TorchProgram):
+    """Greedy batched decode as a replayable step program — the *serving*
+    workload proxied (``launch/serve.py --device-runner proxy``).
+
+    Device state is ``{params, cache: {k, v, pos}, toks}``, the reference's
+    tree leaf for leaf: ``toks`` is the (B, P+G) int32 token buffer holding
+    the deterministic synthetic prompt in its first P positions, and
+    ``cache/pos`` a 0-d int32 tensor (the model's own decode takes a
+    Python int). Step ``n`` feeds ``toks[:, n-1]`` through one decode step
+    at position ``n - 1`` (known on the host: no device read per step),
+    stores ``pos + 1`` and writes the argmax token at position ``n`` when
+    that position is in the generated region. Pure in (state, n), so a
+    proxy death mid-decode replays to bit-identical tokens — and a SYNC
+    after decoding moves only the chunks decode dirtied (cache/toks, never
+    the params). ``cache/pos`` equals the last step run, which the serve
+    CLI checks against its step count. ``num_layers`` cuts the config's
+    depth and keeps its widths. Text frontends only, as the reference.
+    """
+
+    def __init__(self, *, arch: str, smoke: bool = True, batch: int = 2,
+                 prompt_len: int = 32, gen: int = 16, seed: int = 0,
+                 device: str = "cuda", num_layers: int | None = None):
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.models import build
+
+        self.device = _program_device(device)
+        cfg = get_config(arch, smoke=smoke)
+        if num_layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=int(num_layers))
+        if cfg.frontend not in (None, "none", "text"):
+            raise ValueError(
+                f"decode_arch proxies text decode; arch {arch!r} has "
+                f"frontend {cfg.frontend!r}"
+            )
+        self.cfg = cfg
+        self.model = build(cfg)
+        self.batch, self.seed = int(batch), int(seed)
+        self.prompt_len, self.gen = int(prompt_len), int(gen)
+        self.total = self.prompt_len + self.gen
+
+    def prompt(self) -> np.ndarray:
+        """The (B, P) int32 prompt: the reference's draw from ``seed``."""
+        rng = np.random.default_rng(self.seed)
+        return rng.integers(
+            0, self.cfg.vocab_size, (self.batch, self.prompt_len)
+        ).astype(np.int32)
+
+    def _state(self, params, device) -> dict:
+        cache = self.model.init_cache(self.batch, self.total, device=device)
+        cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+        return {
+            "params": params,
+            "cache": cache,
+            "toks": torch.zeros((self.batch, self.total), dtype=torch.int32,
+                                device=device),
+        }
+
+    def init_state(self, params=None):
+        """A fresh state on the host: ``params`` (host tensors, e.g.
+        restored from an image) or params from an explicit CPU generator,
+        a zero cache, the prompt in ``toks``."""
+        if params is None:
+            params = self.model.init(torch.Generator().manual_seed(self.seed))
+        state = self._state(params, "cpu")
+        state["toks"][:, : self.prompt_len] = torch.from_numpy(self.prompt())
+        return state
+
+    def meta_state(self):
+        """The state's structure on the meta device: shapes and dtypes, no
+        storage and no random draws."""
+        return self._state(self.model.init(torch.Generator(), device="meta"), "meta")
+
+    def step(self, d, step):
+        n = int(step)
+        cache = {"k": d["cache"]["k"], "v": d["cache"]["v"], "pos": n - 1}
+        with torch.no_grad():
+            logits, cache = self.model.decode(d["params"], cache, d["toks"][:, n - 1])
+        nxt = logits.argmax(dim=-1).to(torch.int32)
+        toks = d["toks"]
+        if self.prompt_len <= n < self.total:
+            toks[:, n] = nxt
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": d["cache"]["pos"] + 1}
+        # tok0 stays a device scalar: read on the host only at a SYNC
+        return ({"params": d["params"], "cache": new_cache, "toks": toks},
+                {"tok0": nxt[0].to(torch.float32)})
+
+
 register_step_program("numpy_sgd", NumpySGD)
 register_step_program("torch_tiny", TorchTiny)
 register_step_program("train_arch", TrainArch)
+register_step_program("decode_arch", DecodeArch)

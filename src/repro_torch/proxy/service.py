@@ -25,8 +25,11 @@ MAP_SHARED files (local, zero-copy); ``stream`` keeps a private table and
 moves UPLOAD/SYNC payloads as CHUNKS frames on this very connection.
 
 Every incarnation applies the train CLI's determinism settings before its
-first CUDA call (``proxy_entry``): a bitwise replay depends on them, and a
-spawned child inherits none of them.
+first CUDA call (``proxy_entry``, or a proxy-host daemon's
+``serve_forever`` for all its sessions): a bitwise replay depends on them,
+and a spawned child inherits none of them. A daemon runs several sessions
+on threads of one process, so a session counts the kernel launches of its
+own thread (``thread_launches``), never the process's.
 
 The service exits on EOF (application gone), SHUTDOWN, or a SIGKILL drill;
 it keeps no durable state of its own — everything needed to rebuild it
@@ -119,8 +122,8 @@ class ProxyService:
         self._zdict: bytes | None = None
         # per-window accounting, reset at every SYNC: how the wall time
         # between two sync boundaries split between stepping and boundary
-        # work, and the chunk_digest kernel launches the steps made
-        # (reported in SYNCED phase_us): each step's time, whether the
+        # work, and the chunk_digest kernel launches this session's steps
+        # made (reported in SYNCED phase_us): each step's time, whether the
         # window holds this incarnation's first step (its warm-up)
         self._win_step_us: list[float] = []
         self._win_warm_up = False
@@ -165,8 +168,11 @@ class ProxyService:
             else:
                 self.conn.send(MSG_ERR, op=str(mtype), error="unknown message")
         except Exception as e:  # surface per-call failures, stay alive
-            if mtype == MSG_STEP:
-                raise  # a failed step poisons the pipeline: die loudly
+            if mtype in (MSG_STEP, MSG_PROGRAM):
+                # a failed step poisons the pipeline, and a program that
+                # cannot build on its device leaves nothing to serve: end
+                # the session loudly (the app sees ProxyDiedError)
+                raise
             self.conn.send(
                 MSG_ERR, op=str(mtype), error=f"{type(e).__name__}: {e}"
             )
@@ -175,21 +181,21 @@ class ProxyService:
     def _step_fn(self, dstate: Any, step: int) -> tuple[Any, dict]:
         """One step, with the fused digest pass when registered for it."""
         if self.fused_digests:
-            from repro_torch.kernels.chunk_digest import chunk_digests
+            from repro_torch.kernels.chunk_digest import thread_launches
 
-            before = chunk_digests.launches
+            before = thread_launches()
             dstate, metrics, self._last_digests = self.program.step_with_digests(
                 dstate, step, self.shadow.chunk_bytes
             )
-            self._win_launches += chunk_digests.launches - before
+            self._win_launches += thread_launches() - before
             return dstate, metrics
         return self.program.step(dstate, step)
 
     def _on_step(self, msg: dict) -> None:
-        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.flash_attention import thread_launches
 
         t0 = time.perf_counter()
-        flash_before = flash_attention.launches
+        flash_before = thread_launches()
         if self.space is not None:
             # device access through the pager: fault the working set in
             # under the budget, step, write-allocate the results back
@@ -203,7 +209,7 @@ class ProxyService:
         else:
             self.dstate, self.last_metrics = self._step_fn(
                 self.dstate, int(msg["step"]))
-        self._win_flash += flash_attention.launches - flash_before
+        self._win_flash += thread_launches() - flash_before
         self._win_warm_up |= not self._stepped
         self._stepped = True
         self.last_step = int(msg["step"])

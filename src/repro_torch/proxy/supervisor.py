@@ -185,9 +185,9 @@ class ProxyRunner:
         from repro_torch.remote.transport import default_log_dir, make_transport
 
         if device_state is None:
-            from repro_torch.proxy.programs import make_program
+            from repro_torch.proxy.programs import host_program
 
-            device_state = make_program(self.program_spec).init_state()
+            device_state = host_program(self.program_spec).init_state()
         self.transport = make_transport(
             self.transport_kind,
             device_state,

@@ -5,8 +5,10 @@
 ``placement``: the coordinator's endpoint registry and least-loaded
 assignment (``PlacementMap``) and the rank side of the PROXY_ENDPOINT
 handshake (``CoordEndpointProvider``, a ``ProxyRunner(endpoint_provider=...)``).
-The reference's proxy-host daemon (``host``) is not ported yet.
+``host``: the proxy-host daemon, a process that serves proxy sessions for
+any number of remote applications over TCP.
 """
+from repro_torch.remote.host import ProxyHostConfig, ProxyHostHandle, serve_forever
 from repro_torch.remote.placement import (
     CoordEndpointProvider,
     PlacementMap,
@@ -23,6 +25,9 @@ __all__ = [
     "CoordEndpointProvider",
     "PlacementMap",
     "ProxyEndpoint",
+    "ProxyHostConfig",
+    "ProxyHostHandle",
+    "serve_forever",
     "ChunkTransport",
     "SegmentChunkTransport",
     "StreamChunkTransport",

@@ -315,6 +315,15 @@ class ChunkTransport:
             "data_plane_bytes": self.table.bytes_written,
         }
 
+    def canonical_stats(self) -> dict:
+        """Registry-form counters: the one snake_case scheme every layer
+        emits through (``transport_<metric>``; see repro_torch.obs.metrics)."""
+        return {
+            f"transport_{k}": v
+            for k, v in self.stats().items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)
+        }
+
     def close(self, *, unlink: bool = False) -> None:
         self.table.close(unlink=unlink)
 

@@ -516,3 +516,45 @@ def test_managed_space_on_card_matches_cpu(cuda, policy):
                 sp.write_leaf(path, leaf)
         same()
     assert spaces[0].stats.evictions > 0 and spaces[0].stats.writebacks > 0
+
+
+def test_daemon_on_card_serves_decode_bitwise(deterministic):
+    """A proxy-host daemon on the card serves a full-width, 2-layer
+    ``decode_arch`` over the stream transport: its tokens equal the same
+    program stepped inline on the card bit for bit, each proxied step
+    makes one fused ``chunk_digest`` launch (counted in its session), and
+    the final SYNC moves no params chunk."""
+    from repro_torch.proxy import ProxyRunner, make_program
+    from repro_torch.remote.host import ProxyHostHandle
+    from repro_torch.utils.dtypes import leaf_nbytes
+    from repro_torch.utils.tree import flatten_with_paths
+
+    P, G = 32, 8
+    spec = {"name": "decode_arch", "arch": "qwen2-0.5b", "smoke": False, "batch": 2,
+            "prompt_len": P, "gen": G, "num_layers": 2, "device": "cuda"}
+    prog = make_program(spec)
+    init = prog.init_state()
+    state = prog.on_restore(init)
+    for n in range(1, P + G):
+        state, _ = prog.step(state, n)
+    want = state["toks"][:, P:].cpu().numpy()
+    clean = sum(leaf_nbytes(t) for p, t in flatten_with_paths(prog.meta_state())[0].items()
+                if not p.startswith("params/"))
+    d = ProxyHostHandle("card-ph").start()  # device="cuda"
+    try:
+        r = ProxyRunner(spec, transport="stream", chunk_bytes=1 << 20, fused_digests=True,
+                        endpoint_provider=lambda failed=False: d.addr,
+                        op_timeout_s=300.0, sync_timeout_s=300.0)
+        r.start(device_state=init)
+        try:
+            for n in range(1, P + G):
+                r.step(n)
+            got, info = r.sync_state()
+        finally:
+            r.close()
+    finally:
+        d.terminate()
+    np.testing.assert_array_equal(np.asarray(got["toks"])[:, P:], want)
+    assert int(got["cache"]["pos"]) == P + G - 1
+    assert info["phase_us"]["digest_launches"] == info["phase_us"]["steps"] == P + G - 1
+    assert 0 < info["bytes_synced"] <= clean

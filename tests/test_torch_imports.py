@@ -116,3 +116,31 @@ def test_cluster_processes_never_import_jax_or_reference(tmp_path):
         assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
         assert '"lockstep_converged": true' in proc.stdout
         assert "forbidden import" not in proc.stderr
+
+
+def test_daemon_and_proxy_serve_never_import_jax_or_reference(tmp_path):
+    """The proxy-host daemon CLI and the serve CLI's ``decode_arch`` proxy
+    mode, every forbidden package blocked in both processes (and in the
+    daemon's session): the served tokens come back."""
+    (tmp_path / "sitecustomize.py").write_text(_BLOCKER)
+    env = {"PYTHONPATH": f"{tmp_path}:{PKG.parent}", "PATH": "/usr/bin:/bin"}
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.remote.host", "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+    )
+    try:
+        line = daemon.stdout.readline()
+        assert line.startswith("[proxy-host] serving on "), line + daemon.stderr.read()
+        endpoint = line.split()[3]
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2-0.5b",
+             "--smoke", "--device", "cpu", "--device-runner", "proxy",
+             "--proxy-endpoint", endpoint, "--prompt-len", "8", "--gen", "3"],
+            capture_output=True, text=True, env=env, timeout=240,
+        )
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        assert "transport=stream" in proc.stdout and "sample tokens: [" in proc.stdout
+    finally:
+        daemon.kill()
+        _, err = daemon.communicate(timeout=30)
+    assert "forbidden import" not in proc.stderr + err

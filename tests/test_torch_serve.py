@@ -209,7 +209,16 @@ def test_serve_defaults_to_the_card():
                                    ["--proxy-endpoint", "127.0.0.1:7070"],
                                    ["--transport", "stream"]])
 def test_serve_proxy_runner_is_not_ported(extra):
-    with pytest.raises(NotImplementedError, match="proxy"):
+    """The proxy runner is ported (``tests/test_torch_serve_proxy.py``): it
+    decodes on the card unless asked for the CPU, and its flags without
+    ``--device-runner proxy`` are refused, not ignored."""
+    if extra[0] == "--device-runner":
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA card is present: the default device is usable")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_cli.serve(["--arch", ARCH, "--smoke"] + extra)
+        return
+    with pytest.raises(ValueError, match="need --device-runner proxy"):
         serve_cli.serve(["--arch", ARCH, "--smoke", "--device", "cpu"] + extra)
 
 

@@ -5,9 +5,10 @@ The port's frames (``coord.protocol``), causal trace contexts
 (``remote.transport``) are held against the JAX reference: the same dict
 packs to the same frame bytes and each side reads the other's frames; a
 table's layout is the same, so either package attaches the other's
-segments. The cases of ``tests/proxy/test_segments.py`` and the non-zstd
+segments. The cases of ``tests/proxy/test_segments.py`` and the codec-free
 cases of ``tests/remote/test_transport.py`` run again on the port's
-modules. Bytes are compared exactly.
+modules (the zstd cases are in ``tests/test_torch_zstd.py``). Bytes are
+compared exactly.
 """
 import socket
 
@@ -425,3 +426,29 @@ def test_stream_frames_of_either_package_apply_to_the_other(rng):
     for path in port_src.layout:
         assert np.array_equal(ref_dst.view(path), port_src.view(path)), path
         assert np.array_equal(port_dst.view(path), ref_src.view(path)), path
+
+
+@pytest.mark.parametrize("kind", ["segment", "stream"])
+def test_canonical_stats_match_the_reference(kind, tmp_path):
+    """The registry-form counters (``transport_<metric>``) of the same
+    traffic: the same keys and values in both packages."""
+    from repro.remote import transport as ref_transport
+
+    state = _tstate()
+    stats = []
+    for i, make in enumerate((make_transport, ref_transport.make_transport)):
+        (tmp_path / f"t{i}").mkdir()
+        tr = make(kind, state, CB, workdir=str(tmp_path / f"t{i}"), compress=False)
+        try:
+            if kind == "stream":
+                for f in tr.payload_frames(None):
+                    tr.on_chunks({"type": "CHUNKS", **f})
+            else:
+                tr.stage(state, None)
+            stats.append(tr.canonical_stats())
+        finally:
+            tr.close(unlink=True)
+    port, ref = stats
+    assert port == ref
+    assert port["transport_frames_tx"] == (0 if kind == "segment" else port["transport_frames_rx"])
+    assert "transport_transport" not in port  # the kind is a string, not a counter
