@@ -23,7 +23,17 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    ``scale`` override, rows with no key (Sq > Sk), a group of 7 with ragged
    tiles and the serve path's own shapes, with a stated tolerance per dtype
    that must catch a dropped key tile (and the reading of a P rounded once
-   to bf16, which is why the kernel splits P in two);
+   to bf16, which is why the kernel splits P in two); ``[flash-bwd-sweep]``:
+   the forward's row statistics m and l against
+   ``flash_attention_plain(return_stats=True)`` (and its output with them
+   bitwise the one without), and the backward kernels (dq, then dk and dv;
+   tensor cores for bf16/f16, CUDA cores for f32) on the forward kernel's
+   output and statistics against ``flash_attention_bwd_plain`` on the plain
+   forward's, over the same kinds of shapes, causal and not, groups of 1
+   and 7, rows with no key (m -1e30, dq exactly 0), head dims 32/64/128,
+   the model's transposed v and the training shape (run to run bitwise),
+   with stated tolerances that must read a dk missing one head of the
+   group, a dq missing one key tile and m in log base 2 more than 10x over;
 3. the training path through ``repro_torch.launch.train``: qwen2-0.5b at full
    width and depth, batch 4, seq 512, 6 steps, a checkpoint every 2 steps
    with the fork persist backend. The codec is ``none`` by default, not the
@@ -67,9 +77,30 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    attention, ``scaled_dot_product_attention``'s (the kernel's ratio to it
    and its share of the bound on the ``[timing] flash`` line), printed as
    one ``{"kernels": [...]}`` JSON line, printed at the end with each
-   kernel's launches on every later path too (``launches_proxy``,
-   ``_uvm_inline``, ``_uvm_proxy``, ``_serve_proxy``, ``_cluster``,
-   ``_cluster_proxy``, ``_cluster_remote``: counted where they ran);
+   kernel's launches on every later path too (``launches_train_long``,
+   ``launches_proxy``, ``_uvm_inline``, ``_uvm_proxy``, ``_serve_proxy``,
+   ``_cluster``, ``_cluster_proxy``, ``_cluster_remote``: counted where
+   they ran; the backward's are null on paths counted in other processes,
+   which report the digest and the forward only, at seq 512);
+   ``[train:long]``: the train CLI on qwen2-0.5b at full width and depth,
+   batch 2, seq 8192 (above ``attn_chunked_threshold``), ``remat="dots"``
+   as configured, 4 steps, fork checkpoints at 2 and 4, codec none: per
+   step its ms, peak card memory and exactly 48 forward launches (24, and
+   24 that remat recomputes in the backward), 24 backward calls (each
+   launching its two kernels) and no digest launch, all of them counted
+   for the step's thread too; no digest launch at either sync (each its
+   buffer's first); the step-4 image's chunk digests those of the run's
+   state, and the step-2 image run to step 4 bitwise equal to that state;
+   from it, one step under ``remat="none"`` bitwise equal to ``"dots"``
+   (both peaks printed), ``microbatches=2``'s loss and grads bitwise the
+   mean of its halves', each leaf's grads within the stated limits of
+   mb=1's in bf16 and, with the weights upcast, in f32, the step within
+   the limits of mb=1's (loss, grad norm, updated params) and two mb=2
+   steps bitwise equal.
+   ``[timing] flash-bwd``: the backward at one layer of that shape, its
+   bound (five products), its plain version and the library's fused
+   attention backward (forward + backward minus forward, with and without
+   deterministic algorithms), the ``flash_attention_bwd`` row of the JSON;
 7. the proxy path (``[proxy]``): qwen2-0.5b at full width and 4 of its
    24 layers (a cut for the script's time), batch 4, seq 512, 6 steps, a
    checkpoint every 2 steps, fork backend,
@@ -109,7 +140,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    managed state: a managed trainer resumed from step 6 checkpoints step 8
    forked and step 10 through ``save_sync`` (each the first sync of its
    buffer): ``forked_blocking_ms``, ``sync_ms``, ``speedup_vs_naive``.
-   ``[uvm:paged]``: the proxy program cut to 8 of its 24 layers (full
+   ``[uvm:paged]``: the proxy program cut to 2 of its 24 layers (full
    width; a cut for the script's time) with the same budget in
    a proxy process, 4 steps, checkpoints at 2 and 4, SIGKILLed once after
    step 3 is issued: one restart, ``paging`` in every SYNCED, one digest
@@ -118,7 +149,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    through a managed trainer;
 9. the cluster (``[cluster]``): ``repro_torch.coord.run_cluster`` with 2
    ranks on the card, each a spawned process holding a full replica of
-   qwen2-0.5b (full width and depth, the train program of 3), 6 steps,
+   qwen2-0.5b at full width and 2 of its 24 layers (the train program of
+   3, cut for the script's time), 6 steps,
    checkpoints at 2/4/6, fork, codec ``none``, 1 MiB chunks; each rank
    persists only its windows (views of its card tensors, digested on the
    card) and the coordinator two-phase-commits the merged image. Rank 1 is
@@ -195,6 +227,25 @@ SERVE_BATCH, PROMPT, GEN = 2, 8192, 32
 # order over up to 8192 keys where the output is near 0
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7),
              torch.float16: (1e-4, 2.0 ** -10)}
+# flash backward vs its plain version, per gradient tensor, (a, r) in
+# |got - want| <= a max|want| + r |want|: the kernel rounds P and dS once to
+# the input type before their products (as FlashAttention-2 does), so an
+# element is off by up to the unit roundoff u (2**-8 bf16, 2**-11 f16) times
+# the sum of its terms' magnitudes, which dS's cancellations (each row of dS
+# sums to 0) leave above the element itself: a = 2u of the tensor's largest
+# element, plus one ulp of the rounded output, r = 2u. f32 keeps every
+# product in f32: the forward's 2e-5, of the largest element
+FLASH_BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -7),
+                 torch.float16: (2.0 ** -10, 2.0 ** -10)}
+# the forward's row statistics vs the plain version's, every dtype (both
+# are f32 over the same products): |dm| <= 1e-4 (1 + |m|), |dl| <= 1e-4 l.
+# Two tilings of up to 8192 keys order their f32 sums and rescalings
+# differently, which stays far below this; a wrong statistic (log base 2
+# for e, a missed key tile, l == 0 not set to 1) moves m or l by O(1)
+FLASH_STATS_TOL = 1e-4
+# [train:long]: the train CLI at a sequence length that takes the chunked
+# attention lowering (qwen2-0.5b's attn_chunked_threshold is 4096)
+LONG_STEPS, LONG_BATCH, LONG_SEQ = 4, 2, 8192
 # teacher forcing: the served logits (prefill through the kernel, then
 # decode) may lie no further from the f32 model's logits than one bf16
 # forward (dense lowering) of the same tokens does (PERF.md says why), and
@@ -216,8 +267,9 @@ def phase_card() -> str:
     from repro_torch.kernels import chunk_digest, flash_attention
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source
-        libs = list(pool.map(lambda k: k.build(), (chunk_digest, flash_attention)))
+    builds = (chunk_digest.build, flash_attention.build, flash_attention.build_bwd)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:  # one nvcc per source
+        libs = list(pool.map(lambda build: build(), builds))
     print(f"[build] {' '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     return smi
@@ -457,21 +509,174 @@ def phase_flash_sweep() -> None:
         raise SystemExit("the bf16 tolerance does not see a dropped key tile")
 
 
+def _bwd_tol_ratio(got: torch.Tensor, want: torch.Tensor, scale: float | None = None) -> float:
+    """max |got - want| / (a max|want| + r |want|) (``FLASH_BWD_TOL``;
+    ``scale``: max|want| of the whole tensor when ``want`` is a part)."""
+    a, r = FLASH_BWD_TOL[want.dtype]
+    want = want.float()
+    top = float(want.abs().max()) if scale is None else scale
+    return float(((got.float() - want).abs() / (a * top + r * want.abs())).max())
+
+
+def _flash_bwd_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, causal=True):
+    """The kernel forward's output and statistics on ``_flash_inputs``, and
+    a dO: what a backward gets."""
+    from repro_torch.kernels import flash_attention
+
+    q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen)
+    do = torch.randn((B, Hq, Sq, D), generator=gen, device="cuda").to(dtype)
+    o, m, l = flash_attention.flash_attention(q, k, v, causal=causal, stats=True)
+    return q, k, v, o, m, l, do
+
+
+def _stats_ratio(m, l, pm, pl) -> float:
+    """The kernel's row statistics against the plain version's, as a
+    fraction of ``FLASH_STATS_TOL``: above 1 is a breach."""
+    dm = ((m - pm).abs() / (FLASH_STATS_TOL * (1 + pm.abs()))).max()
+    dl = ((l - pl).abs() / (FLASH_STATS_TOL * pl)).max()
+    return float(torch.maximum(dm, dl))
+
+
+def _flash_bwd_vs_plain(ins, *, causal=True, blocks=None):
+    """The forward's statistics and the backward kernel, each against its
+    plain version: the kernel's backward takes the kernel forward's o, m
+    and l, the plain backward the plain forward's, on the same q, k, v and
+    dO. Returns (worst gradient tolerance ratio, max abs error, statistics
+    ratio, output with statistics bitwise equal to output without, kernel
+    grads, plain grads, the plain forward's (o, m, l))."""
+    from repro_torch.kernels import flash_attention, ref
+
+    q, k, v, o, m, l, do = ins
+    bq, bk = blocks or (_plain_block(q.shape[2]), _plain_block(k.shape[2]))
+    po, pm, pl = ref.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                                           return_stats=True)
+    stats_ratio = _stats_ratio(m, l, pm, pl)
+    same_out = torch.equal(o, flash_attention.flash_attention(q, k, v, causal=causal))
+    got = flash_attention.flash_attention_bwd(*ins, causal=causal)
+    want = ref.flash_attention_bwd_plain(q, k, v, po, pm, pl, do, causal=causal,
+                                         block_q=bq, block_k=bk)
+    for g, w, t in zip(got, want, ins[:3]):
+        if g.dtype != t.dtype or g.shape != t.shape or not g.is_contiguous():
+            raise SystemExit(f"flash_attention_bwd: got {g.dtype} {tuple(g.shape)}")
+    ratio = max(_bwd_tol_ratio(g, w) for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    return ratio, err, stats_ratio, same_out, got, want, (po, pm, pl)
+
+
+def phase_flash_bwd_sweep() -> None:
+    """The forward's row statistics and the backward kernel (both routes)
+    against their plain versions, the plain backward on the plain forward's
+    output and statistics: the forward sweep's shapes, causal and not, head
+    dims 32/64/128, groups of 1 and 7, rows with no key (Sq > Sk), the
+    model's transposed v, and the training shape, with broken controls that
+    the tolerance must see."""
+    from repro_torch.kernels import flash_attention, ref
+
+    bwd = flash_attention.flash_attention_bwd
+    before = dict(bwd.launches_by_route)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shapes = [  # (B, Hq, Hkv, Sq, Sk, D)
+        (1, 1, 1, 128, 128, 64), (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 128, 128),
+        (1, 4, 4, 128, 512, 64), (2, 2, 2, 384, 384, 32),   # the forward sweep's
+        (1, 2, 1, 256, 128, 64), (1, 7, 1, 200, 72, 32),    # Sq > Sk: rows with no key
+        (1, 14, 2, 200, 200, 64), (1, 14, 2, 120, 200, 128),  # group of 7, ragged tiles
+    ]
+    worst, stats_worst, cases, nokey_dq, nokey_m, stats_same = {}, 0.0, 0, 0.0, True, True
+    for dtype in FLASH_BWD_TOL:
+        for shape in shapes:
+            for causal in (True, False):
+                ins = _flash_bwd_inputs(*shape, dtype, gen, causal=causal)
+                ratio, _, st_ratio, same_out, got, _, _ = _flash_bwd_vs_plain(ins, causal=causal)
+                worst[dtype] = max(worst.get(dtype, 0.0), ratio)
+                stats_worst = max(stats_worst, st_ratio)
+                stats_same = stats_same and same_out
+                cases += 1
+                Sq, Sk = shape[3], shape[4]
+                if causal and Sq > Sk:  # rows with no key: dS is 0 there, m -1e30
+                    nokey_dq = max(nokey_dq, float(got[0][:, :, : Sq - Sk].abs().max()))
+                    nokey_m = nokey_m and bool((ins[4][:, :, : Sq - Sk] == -1e30).all())
+    # the training shape, one layer: qwen2-0.5b's heads at 8192 tokens
+    ins = _flash_bwd_inputs(LONG_BATCH, 14, 2, LONG_SEQ, LONG_SEQ, 64, torch.bfloat16, gen)
+    train_ratio, train_err, train_stats, same_out, got, want, plain_fwd = \
+        _flash_bwd_vs_plain(ins, blocks=(1024, 1024))
+    stats_same = stats_same and same_out
+    cases += 1
+    same = all(torch.equal(a, b) for a, b in zip(got, flash_attention.flash_attention_bwd(*ins)))
+    # what the tolerance reads for a wrong kernel: (1) dk without the first
+    # q head of each kv head's group of 7; (2) 128 rows' dq without their
+    # first key tile (64 keys, which every one of them sees): rows 64..191,
+    # gated, and the last 128 rows (the longest, whose dq is far below the
+    # tensor's largest element), printed only; (3) the statistics with m in
+    # log base 2, gated
+    q, k, v, _, m, _, do = ins
+    o, pm, pl = plain_fwd
+    heads = [0, 7]  # the first q head of each kv head
+    part = ref.flash_attention_bwd_plain(q[:, heads], k, v, o[:, heads],
+                                         pm[:, heads].contiguous(), pl[:, heads].contiguous(),
+                                         do[:, heads], block_q=1024, block_k=1024)
+    head_ratio = _bwd_tol_ratio(want[1].float() - part[1].float(), want[1])
+    T, top = 128, float(want[0].float().abs().max())
+
+    def without_first_tile(r0):
+        rows = slice(r0, r0 + T)
+        tile = ref.flash_attention_bwd_plain(
+            q[:, :, rows], k[:, :, :64], v[:, :, :64], o[:, :, rows],
+            pm[:, :, rows].contiguous(), pl[:, :, rows].contiguous(), do[:, :, rows],
+            causal=False, block_q=T, block_k=64)
+        return _bwd_tol_ratio(want[0][:, :, rows].float() - tile[0].float(),
+                              want[0][:, :, rows], scale=top)
+
+    tile_ratio, last_ratio = without_first_tile(64), without_first_tile(LONG_SEQ - T)
+    log2_ratio = _stats_ratio(m / math.log(2), ins[5], pm, pl)
+    del ins, q, k, v, o, m, pm, pl, do, got, want, part, plain_fwd
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    routes = {r: n - before[r] for r, n in bwd.launches_by_route.items()}
+    print(f"[flash-bwd-sweep] cases={cases} routes={routes} " + " ".join(
+        f"{str(d).replace('torch.', '')}_worst={e:.3g}x (a {FLASH_BWD_TOL[d][0]:g} max|want| "
+        f"+ r {FLASH_BWD_TOL[d][1]:g} |want|)" for d, e in worst.items())
+        + f" stats_worst={stats_worst:.3g}x (|dm| <= {FLASH_STATS_TOL:g} (1 + |m|), "
+        f"|dl| <= {FLASH_STATS_TOL:g} l) train_shape_stats={train_stats:.3g}x "
+        f"out_with_stats_bitwise={stats_same} no_key_rows: m=-1e30 {nokey_m}, "
+        f"max_abs_dq={nokey_dq:g} train_shape={train_ratio:.3g}x "
+        f"(max_abs_err={train_err:.3g}) run_to_run_equal={same}: one head of the group "
+        f"missing from dk reads {head_ratio:.3g}x the limit, one key tile missing from "
+        f"rows 64..191's dS reads {tile_ratio:.3g}x (from the last {T} rows' "
+        f"{last_ratio:.3g}x), m in log base 2 reads {log2_ratio:.3g}x", flush=True)
+    if max(max(worst.values()), train_ratio) > 1:
+        raise SystemExit(f"flash_attention_bwd outside its tolerance: {worst} "
+                         f"train shape {train_ratio}")
+    if max(stats_worst, train_stats) > 1 or not stats_same or not nokey_m:
+        raise SystemExit(f"flash_attention statistics: {stats_worst}x, train shape "
+                         f"{train_stats}x, output unchanged {stats_same}, no-key m {nokey_m}")
+    if nokey_dq != 0 or not same:
+        raise SystemExit(f"flash_attention_bwd: rows with no key got dq {nokey_dq}, "
+                         f"run to run equal {same}")
+    if min(head_ratio, tile_ratio, log2_ratio) <= 10:
+        raise SystemExit("the bf16 backward or statistics tolerance does not see a missing "
+                         "head, a missing key tile or m in log base 2 by a wide factor")
+
+
 def _zero_counts() -> None:
     from repro_torch.kernels import chunk_digest, flash_attention
 
     chunk_digest.chunk_digests.launches = 0
-    flash_attention.flash_attention.launches = 0
-    for route in flash_attention.flash_attention.launches_by_route:
-        flash_attention.flash_attention.launches_by_route[route] = 0
+    fwd, bwd = flash_attention.flash_attention, flash_attention.flash_attention_bwd
+    fwd.launches = bwd.launches = 0
+    for counter in (fwd.launches_by_route, bwd.launches_by_route):
+        for key in counter:
+            counter[key] = 0
 
 
 def _counts() -> dict:
     from repro_torch.kernels import chunk_digest, flash_attention
 
+    fwd, bwd = flash_attention.flash_attention, flash_attention.flash_attention_bwd
     return {"chunk_digest": chunk_digest.chunk_digests.launches,
-            "flash_attention": flash_attention.flash_attention.launches,
-            "flash_attention_by_route": dict(flash_attention.flash_attention.launches_by_route)}
+            "flash_attention": fwd.launches,
+            "flash_attention_by_route": dict(fwd.launches_by_route),
+            "flash_attention_bwd": bwd.launches,
+            "flash_attention_bwd_by_route": dict(bwd.launches_by_route)}
 
 
 def phase_main_path(store: str, codec: str):
@@ -945,12 +1150,382 @@ def phase_flash_timing(serve_launches: int) -> dict:
     return row
 
 
+def phase_flash_bwd_timing(train_long_launches: int) -> dict:
+    """The backward kernel at one layer of [train:long]'s shape: q (2, 14,
+    8192, 64), k = v (2, 2, 8192, 64), bf16, causal, v the model's
+    transposed view; beside its bound, its plain version (at the model's
+    attention blocks, 512 x 1024) and the library's fused attention
+    backward (SDPA forward + backward, minus its forward)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    B, Hq, Hkv, S, D = LONG_BATCH, 14, 2, LONG_SEQ, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ins = _flash_bwd_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16, gen)
+    kernel = flash_attention.flash_attention_bwd
+    ratio, err = _flash_bwd_vs_plain(ins, blocks=(512, 1024))[:2]  # warm-up too
+    ms = _time_ms(lambda: kernel(*ins), 10)
+    # each of the two kernels' device time, from the profiler's trace
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kernel(*ins)
+        torch.cuda.synchronize()
+    split = {name: e.device_time_total / e.count / 1e3 for e in prof.key_averages()
+             for name in ("dq", "dkdv") if f"flash_bwd_{name}_" in e.key and e.count}
+    plain_ms = _time_ms(lambda: ref.flash_attention_bwd_plain(*ins, block_q=512,
+                                                              block_k=1024), 2)
+    q, k, v, _, _, _, do = ins
+    qg, kg, vg = (t.detach().clone().contiguous().requires_grad_(True) for t in (q, k, v))
+
+    def library_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+
+    def library_both():
+        return torch.autograd.grad(library_fwd(), (qg, kg, vg), do)
+
+    # with this run's deterministic algorithms and without them; the
+    # library may refuse its backward under determinism
+    library = {}
+    for det in (True, False):
+        torch.use_deterministic_algorithms(det)
+        try:
+            library_both()  # warm-up: its first calls pick a backend, with
+            with torch.no_grad():  # and without a gradient
+                library_fwd()
+                fwd_ms = _time_ms(library_fwd, 10)
+            library[det] = _time_ms(library_both, 10) - fwd_ms
+        except RuntimeError as exc:  # refused: printed, not timed
+            library[det] = f"refused ({str(exc).splitlines()[0][:120]})"
+    torch.use_deterministic_algorithms(True)
+    timed = [x for x in library.values() if isinstance(x, float)]
+    library_ms = min(timed) if timed else None
+    del ins, q, k, v, do, qg, kg, vg
+    torch.cuda.empty_cache()
+    nbytes = (4 * B * Hq * S * D * 2 + 4 * B * Hkv * S * D * 2  # q, o, dO, dq; k, v, dk, dv
+              + 2 * B * Hq * S * 4)                             # m, l
+    flops = 10 * B * Hq * D * S * (S + 1) / 2  # 5 products over causal pairs
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_TC_OPS_PER_S * 1e3
+    row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "none: the reference differentiates src/repro/models/layers.py:136 "
+                    "(_chunked_attention) in plain JAX; no Pallas backward",
+        "launches": train_long_launches, "kernels_per_launch": 2,  # dq, then dk and dv
+        "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+    lib = " ".join(f"{'deterministic' if d else 'not'}="
+                   f"{x if isinstance(x, str) else format(x, '.4f')}"
+                   for d, x in library.items())
+    print(f"[timing] flash-bwd q={(B, Hq, S, D)} k=v={(B, Hkv, S, D)} bf16 causal "
+          f"kernel_ms={ms:.4f} (two launches: dq, then dk and dv; profiler per launch: "
+          f"{' '.join(f'{k}={v:.4f}' for k, v in split.items()) or 'not measured'}) "
+          f"plain_ms={plain_ms:.1f} "
+          f"library_ms={library_ms if library_ms is None else format(library_ms, '.4f')} "
+          f"({lib}) bound_ms={row['bound_ms']:.4f} bound/kernel={row['bound_ms'] / ms:.3f} "
+          f"TFLOP/s={flops / ms / 1e9:.1f} max_abs_err={err:.3g} ({ratio:.3g}x the bf16 "
+          f"limit)", flush=True)
+    if not ratio <= 1:
+        raise SystemExit(f"flash_attention_bwd disagrees with plain at the train shape: {err}")
+    return row
+
+
+def _clone(tree):
+    from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
+
+    flat, treedef = flatten_with_paths(tree)
+    return unflatten_from_paths(treedef, {p: t.clone() if isinstance(t, torch.Tensor) else t
+                                          for p, t in flat.items()})
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def phase_train_long(card: str) -> dict:
+    """The train CLI at seq 8192 ([train:long]): qwen2-0.5b at full width and
+    depth, batch 2, ``remat="dots"`` as configured, 4 steps, fork
+    checkpoints at 2 and 4, codec none. Every layer's attention is the flash
+    kernel and its gradient the backward kernel: per step exactly 24 + 24
+    forward launches (remat recomputes each layer's attention in the
+    backward) and 24 of each backward kernel, no digest launch inside a
+    step, none at either sync (each the first of its shadow buffer, whose
+    digests the persist child backfills); the step's thread counts every
+    one of them, the recomputed and backward ones autograd runs on its own
+    thread included. The step-4 image's chunk digests must be the run's
+    final state's, and the step-2 image, run to step 4, that state bit for
+    bit. Then from the step-4 state and the next batch: one step under
+    ``remat="none"`` bitwise equal to one under ``"dots"`` (both peaks
+    printed), and ``microbatches=2`` against 1 (a step, and its grads in
+    bf16 and in f32) within the stated limits, mb=2's grads exactly the
+    mean of its halves', its step's loss and grad norm theirs, and two
+    mb=2 steps equal, bit for bit."""
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.checkpoint.manifest import load_manifest
+    from repro_torch.configs import get_config
+    from repro_torch.core import RestoreManager
+    from repro_torch.core.shadow import ShadowStateManager
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import chunk_digest, flash_attention, ops
+    from repro_torch.launch import train
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import build
+    from repro_torch.optim import get_optimizer, global_norm, warmup_cosine
+    from repro_torch.runtime import steps as steps_mod
+    from repro_torch.runtime.steps import batch_to_device
+    from repro_torch.utils.tree import flatten_with_paths, tree_equal, unflatten_from_paths
+
+    cfg = get_config(ARCH)
+    L = cfg.num_layers
+    want_step = {"flash_attention": 2 * L, "flash_attention_bwd": L, "chunk_digest": 0,
+                 "thread": (2 * L, L)}
+    steps, syncs = [], []
+    make, sync = train.make_train_step, ShadowStateManager.sync
+
+    def counting_make(model, optimizer, **kw):
+        fn = make(model, optimizer, **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            c0 = _counts()
+            t_fwd, t_bwd = flash_attention.thread_launches(), flash_attention.thread_bwd_launches()
+            held = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            c1 = _counts()
+            steps.append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_gb": held,
+                **{key: c1[key] - c0[key] for key in
+                   ("flash_attention", "flash_attention_bwd", "chunk_digest")},
+                "thread": (flash_attention.thread_launches() - t_fwd,
+                           flash_attention.thread_bwd_launches() - t_bwd),
+                "routes": (c1["flash_attention_by_route"]["wgmma"]
+                           - c0["flash_attention_by_route"]["wgmma"],
+                           c1["flash_attention_bwd_by_route"]["mma"]
+                           - c0["flash_attention_bwd_by_route"]["mma"])})
+            return out
+
+        return step
+
+    def counted_sync(self, state):
+        before = chunk_digest.chunk_digests.launches
+        stats = sync(self, state)
+        syncs.append(chunk_digest.chunk_digests.launches - before)
+        return stats
+
+    argv = ["--arch", ARCH, "--steps", str(LONG_STEPS), "--batch", str(LONG_BATCH),
+            "--seq", str(LONG_SEQ), "--ckpt-every", "2", "--backend", "fork", "--codec",
+            "none", "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-long-") as tmp:
+        store = os.path.join(tmp, "ckpt")
+        train.make_train_step, ShadowStateManager.sync = counting_make, counted_sync
+        try:
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = train.train(argv + ["--ckpt-dir", store])
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        finally:
+            train.make_train_step, ShadowStateManager.sync = make, sync
+        for i, st in enumerate(steps, 1):
+            print(f"[train:long] {card} step={i} step_ms={st['ms']:.1f} peak_gb="
+                  f"{st['peak_gb']:.2f} (held before {st['held_gb']:.2f}) flash_fwd="
+                  f"{st['flash_attention']} flash_bwd_calls={st['flash_attention_bwd']} "
+                  f"digest={st['chunk_digest']} (wgmma, mma)={st['routes']} "
+                  f"this_thread(fwd, bwd)={st['thread']}", flush=True)
+        for r in out["results"]:
+            print(f"[train:long] ckpt step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
+                  f"persist_ms={r.persist_s * 1e3:.1f} synced={r.chunks_synced} "
+                  f"written={r.chunks_written}", flush=True)
+        m = out["metrics"]
+        print(f"[train:long] arch={ARCH} layers={L} batch={LONG_BATCH} seq={LONG_SEQ} "
+              f"remat={cfg.remat} steps={out['final_step']} wall_s={wall:.1f} "
+              f"loss={m['loss']:.4f} grad_norm={m['grad_norm']:.4f} digest_launches_per_sync="
+              f"{syncs} launches={ {k: counts[k] for k in ('flash_attention', 'flash_attention_bwd', 'chunk_digest')} }",
+              flush=True)
+        if out["final_step"] != LONG_STEPS or not all(map(math.isfinite, m.values())):
+            raise SystemExit(f"[train:long] did not finish cleanly: {out['final_step']} {m}")
+        if [r.step for r in out["results"]] != [2, 4]:
+            raise SystemExit(f"[train:long] images: {[r.step for r in out['results']]}")
+        bad = [st for st in steps if {k: st[k] for k in want_step} != want_step
+               or st["routes"] != (2 * L, L)]
+        if len(steps) != LONG_STEPS or bad:
+            raise SystemExit(f"[train:long] launches per step, want {want_step} on the "
+                             f"tensor-core routes: {bad or len(steps)}")
+        if syncs != [0, 0]:
+            raise SystemExit(f"[train:long] digest launches per sync {syncs}, want [0, 0]")
+
+        # the step-4 image is the run's final state: every chunk's digest
+        # in its manifest is the one of the live state's bytes
+        manifest = load_manifest(store, 4)
+        stored = {path: [c.digest for sh in lv.shards for c in sh.chunks]
+                  for path, lv in manifest.leaves.items()}
+        cb = max(c.raw_len for lv in manifest.leaves.values() for sh in lv.shards
+                 for c in sh.chunks)
+        image_same = ops.tree_chunk_digests(out["state"], cb) == stored
+        run = build_training(cfg, batch=LONG_BATCH, seq=LONG_SEQ, lr=3e-4,
+                             total_steps=LONG_STEPS, device=torch.device("cuda"))
+        t_restore = time.perf_counter()
+        state, _ = RestoreManager(ChunkStore(store)).restore(step=2, device_for=run.device_for)
+        t_restore = time.perf_counter() - t_restore
+        data = SyntheticBatches.from_state(cfg, batch=LONG_BATCH, seq_len=LONG_SEQ,
+                                           state=state["host"]["data"])
+        for step in (3, 4):
+            state["device"], _ = run.step_fn(state["device"], batch_to_device(next(data), "cuda"))
+            state["host"]["step"] = np.int64(step)
+            state["host"]["data"] = data.state()
+        torch.cuda.synchronize()
+        same = tree_equal(state, out["state"])
+        print(f"[train:long] step-4 image digests equal the run's state: {image_same} "
+              f"({sum(map(len, stored.values()))} chunks of up to {cb} bytes); restored step 2 "
+              f"in {t_restore:.1f} s, ran 3..4: bitwise_equal to the run's step-4 state={same}",
+              flush=True)
+        if not image_same:
+            raise SystemExit("[train:long] the stored step-4 image differs from the run")
+        if not same:
+            raise SystemExit("[train:long] the restart diverged from the step-4 image")
+        del state
+    base = out["state"]["device"]
+    batch = batch_to_device(next(data), "cuda")
+    del out
+    torch.cuda.empty_cache()
+
+    optimizer = get_optimizer(cfg.optimizer, warmup_cosine(3e-4, 10, LONG_STEPS))  # the CLI's
+
+    def one_step(remat: str, mb: int = 1):
+        """One step from a copy of ``base``: (state, metrics, ms, peak GB,
+        GB held before the step: ``base`` and the states kept for checks)."""
+        model = build(cfg.with_overrides(remat=remat))
+        fn = steps_mod.make_train_step(model, optimizer, microbatches=mb)
+        state = _clone(base)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, metrics = fn(state, batch)
+        torch.cuda.synchronize()
+        return new, metrics, (time.perf_counter() - t0) * 1e3, \
+            torch.cuda.max_memory_allocated() / 1e9, held
+
+    # microbatches. Exact: mb = 2's loss and grads are the mean of the two
+    # halves' (each half a batch of its own), accumulated in f32 from zeros,
+    # bit for bit; the step's loss and grad norm are those bits, and a
+    # second step gives the same state. Against mb = 1 on the same state
+    # and batch:
+    # - each leaf's grads within relative L2 GRAD_REL_F32 in f32, where
+    #   the two batch shapes differ only by f32 sum orders (a wrong split,
+    #   weight or accumulation moves a leaf by O(1)); and within
+    #   GRAD_REL_BF16 in the model's bf16, where those orders round bf16
+    #   activations differently through 24 layers (the embedding reads
+    #   0.038 on an NVIDIA H100);
+    # - loss and grad norm within 1e-2 relative, and the updated params no
+    #   further from mb=1's than mb=1's step moved them plus one bf16 ulp
+    #   each side (2**-7 |p|: Adam normalises each element, so near-zero
+    #   grads may flip its update)
+    GRAD_REL_F32, GRAD_REL_BF16 = 1e-4, 2.0 ** -4
+
+    def grads_mb1_mb2(model, params, halves=True):
+        """Per leaf relative L2 of mb=2's grads to mb=1's, mb=2's loss and
+        grads, and (``halves``) whether mb=2 is exactly the mean of its
+        halves."""
+        loss2, _, grads2 = steps_mod.loss_and_grads(model, params, batch, 2)
+        g2 = flatten_with_paths(grads2)[0]
+        exact = None
+        if halves:
+            parts = [steps_mod.loss_and_grads(model, params,
+                                              {k: v[i : i + 1] for k, v in batch.items()}, 1)
+                     for i in range(2)]
+            h0, h1 = (flatten_with_paths(h[2])[0] for h in parts)
+            exact = bool(torch.equal(loss2, (parts[0][0] + parts[1][0]) / 2)) and all(
+                torch.equal(g2[p], (torch.zeros_like(g2[p]) + h0[p].float() + h1[p].float()) / 2)
+                for p in g2)
+            del parts, h0, h1
+        loss1, _, grads1 = steps_mod.loss_and_grads(model, params, batch, 1)
+        rel = {p: _rel_l2(g2[p], g) for p, g in flatten_with_paths(grads1)[0].items()}
+        return rel, loss1, loss2, grads2, exact
+
+    # f32 first, while little else is held: the same weights, upcast (the
+    # flash kernels' CUDA-core route)
+    flat, treedef = flatten_with_paths(base["params"])
+    params32 = unflatten_from_paths(treedef, {k: v.float() for k, v in flat.items()})
+    t0 = time.perf_counter()
+    rel32, loss1_32, loss2_32, _, _ = grads_mb1_mb2(
+        build(cfg.with_overrides(param_dtype="float32", compute_dtype="float32")), params32,
+        halves=False)
+    f32_s = time.perf_counter() - t0
+    del flat, params32
+    torch.cuda.empty_cache()
+
+    dots, dots_metrics, dots_ms, dots_peak, dots_held = one_step("dots")
+    none, none_metrics, none_ms, none_peak, none_held = one_step("none")
+    remat_same = tree_equal(dots, none) and all(
+        torch.equal(dots_metrics[k], none_metrics[k]) for k in dots_metrics)
+    del none
+    print(f"[train:long] remat none vs dots: bitwise_equal={remat_same} step_ms "
+          f"{none_ms:.1f} / {dots_ms:.1f} peak_gb {none_peak:.2f} / {dots_peak:.2f} "
+          f"(held before the step {none_held:.2f} / {dots_held:.2f})", flush=True)
+    if not remat_same:
+        raise SystemExit("[train:long] remat='none' and 'dots' steps differ")
+
+    model = build(cfg)
+    rel, loss1, loss2, grads2, exact = grads_mb1_mb2(model, base["params"])
+    norm2 = global_norm(grads2)
+    accum = {str(g.dtype).replace("torch.", "")
+             for g in flatten_with_paths(grads2)[0].values()}
+    del grads2
+    loss_rel = abs(float(loss2) / float(loss1) - 1)
+    mb2, mb2_metrics, mb2_ms, mb2_peak, _ = one_step(cfg.remat, 2)
+    again, again_metrics, _, _, _ = one_step(cfg.remat, 2)
+    mb_same = bool(torch.equal(mb2_metrics["loss"], loss2)
+                   and torch.equal(mb2_metrics["grad_norm"], norm2)) and tree_equal(
+        mb2, again) and all(torch.equal(mb2_metrics[k], again_metrics[k]) for k in mb2_metrics)
+    del again
+    p0 = flatten_with_paths(base["params"])[0]
+    p1 = flatten_with_paths(dots["params"])[0]
+    p2 = flatten_with_paths(mb2["params"])[0]
+    moved = max(float((p1[p].float() - p0[p].float()).abs().max()) for p in p0)
+    param_ratio = max(float(((p2[p].float() - p1[p].float()).abs()
+                             / (moved + 2.0 ** -7 * p1[p].float().abs())).max()) for p in p0)
+    norm_rel = abs(float(mb2_metrics["grad_norm"]) / float(dots_metrics["grad_norm"]) - 1)
+    del mb2, dots, base, p0, p1, p2
+    torch.cuda.empty_cache()
+
+    def leaves(r):
+        worst = max(r, key=r.get)
+        return (f"median={float(np.median(list(r.values()))):.3g} max={r[worst]:.3g} "
+                f"({worst})")
+
+    print(f"[train:long] microbatches 2: the halves' mean bitwise={exact} "
+          f"accum_dtype={sorted(accum)} two_mb2_steps_bitwise_equal_and_equal_to_the_"
+          f"grads={mb_same}; "
+          f"vs 1: grad_rel_l2 per leaf f32 {leaves(rel32)} (limit {GRAD_REL_F32:g}; "
+          f"loss_rel={abs(float(loss2_32) / float(loss1_32) - 1):.3g}; {f32_s:.1f} s) bf16 "
+          f"{leaves(rel)} (limit {GRAD_REL_BF16:g}) loss_rel={loss_rel:.3g} (limit 1e-2) "
+          f"grad_norm_rel={norm_rel:.3g} (limit 1e-2) params {param_ratio:.3g}x the limit "
+          f"(the mb=1 step moved params by up to {moved:.3g}); mb2_step_ms={mb2_ms:.1f} "
+          f"mb2_peak_gb={mb2_peak:.2f}", flush=True)
+    if not (exact and mb_same and accum == {cfg.accum_dtype}):
+        raise SystemExit("[train:long] the microbatch step is not exact where it must be")
+    if not (max(rel32.values()) <= GRAD_REL_F32 and max(rel.values()) <= GRAD_REL_BF16
+            and loss_rel <= 1e-2 and norm_rel <= 1e-2 and param_ratio <= 1):
+        raise SystemExit("[train:long] the microbatch step is outside its limits")
+    return {"launches": counts}
+
+
 # the full train program; [proxy] trains PROXY_LAYERS of its 24 layers and
 # [uvm:paged] PAGED_LAYERS (full width), cuts for the script's time
 # (PERF.md §4)
 UVM_SPEC = {"name": "train_arch", "arch": ARCH, "smoke": False, "batch": BATCH,
             "seq": SEQ, "lr": LR, "total_steps": STEPS, "device": "cuda"}
-PROXY_LAYERS, PAGED_LAYERS = 4, 8
+PROXY_LAYERS, PAGED_LAYERS = 4, 2
 PROXY_SPEC = dict(UVM_SPEC, num_layers=PROXY_LAYERS)
 PAGED_SPEC = dict(UVM_SPEC, num_layers=PAGED_LAYERS)
 PROXY_CHUNK = 1 << 20
@@ -1622,7 +2197,8 @@ def phase_uvm(card: str, unmanaged6) -> dict:
     if not same_paged:
         raise SystemExit("the paged proxy's step-4 image differs from the inline managed one")
     return dict(out, launches_inline={"chunk_digest": counts["chunk_digest"],
-                                      "flash_attention": counts["flash_attention"]},
+                                      "flash_attention": counts["flash_attention"],
+                                      "flash_attention_bwd": counts["flash_attention_bwd"]},
                 launches_proxy={"chunk_digest": launches, "flash_attention": flash})
 
 
@@ -1634,9 +2210,9 @@ def _clock(tag: str):
     print(f"[{tag}] wall_s={time.perf_counter() - t0:.1f}", flush=True)
 
 
-# [cluster] trains the full train program; [cluster:proxy] 2 of its 24
-# layers (full width), for the script's time
-CLUSTER_SPEC = dict(UVM_SPEC)
+# [cluster] and [cluster:proxy] train 2 of the train program's 24 layers
+# (full width), cuts for the script's time (PERF.md §4)
+CLUSTER_SPEC = dict(UVM_SPEC, num_layers=2)
 CLUSTER_PROXY_SPEC = dict(UVM_SPEC, num_layers=2)
 CLUSTER_CHUNK = 1 << 20
 
@@ -1998,6 +2574,8 @@ def main() -> int:
         phase_sweep()
     with _clock("flash-sweep"):
         phase_flash_sweep()
+    with _clock("flash-bwd-sweep"):
+        phase_flash_bwd_sweep()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         store = os.path.join(tmp, "ckpt")
         with _clock("main"):
@@ -2015,6 +2593,12 @@ def main() -> int:
     del device_state
     with _clock("timing flash"):
         rows.append(phase_flash_timing(served["launches"]))
+    with _clock("train:long"):
+        long_run = phase_train_long(card)
+    with _clock("timing flash-bwd"):
+        rows.append(phase_flash_bwd_timing(long_run["launches"]["flash_attention_bwd"]))
+    for row in rows:  # each kernel's launches in the [train:long] CLI run
+        row["launches_train_long"] = long_run["launches"][row["name"]]
     with _clock("proxy"):
         proxied = phase_proxy(card)
     # the proxy path's own count: the fused digest's launches in the proxy
@@ -2022,19 +2606,22 @@ def main() -> int:
     rows[0]["launches_proxy"] = proxied["launches"]
     with _clock("uvm"):
         uvm = phase_uvm(card, unmanaged6)
-    for row in rows:  # each kernel's launches on the managed paths
+    # each kernel's launches on the managed paths; a path counted in other
+    # processes (proxies, ranks) reports the digest and the forward only, and
+    # runs seq 512, below the attention kernels' threshold: null there
+    for row in rows:
         row["launches_uvm_inline"] = uvm["launches_inline"][row["name"]]
-        row["launches_uvm_proxy"] = uvm["launches_proxy"][row["name"]]
+        row["launches_uvm_proxy"] = uvm["launches_proxy"].get(row["name"])
     with _clock("cluster"):
         clustered = {"launches": phase_cluster(card)}
         clustered.update(phase_cluster_proxy(card))
     # the cluster paths' own counts: the ranks' (and their proxies')
     # launches, counted in their processes and sent in their acks
     for row in rows:
-        row["launches_serve_proxy"] = served_proxy["launches"][row["name"]]
-        row["launches_cluster"] = clustered["launches"][row["name"]]
-        row["launches_cluster_proxy"] = clustered["launches_proxy"][row["name"]]
-        row["launches_cluster_remote"] = clustered["launches_remote"][row["name"]]
+        row["launches_serve_proxy"] = served_proxy["launches"].get(row["name"])
+        row["launches_cluster"] = clustered["launches"].get(row["name"])
+        row["launches_cluster_proxy"] = clustered["launches_proxy"].get(row["name"])
+        row["launches_cluster_remote"] = clustered["launches_remote"].get(row["name"])
     print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """Architecture registry: ``--arch <id>`` ids as the reference names them.
 
-Only architectures whose model code is ported to PyTorch are listed.
+Only architectures whose model code is ported to PyTorch are listed: the
+dense text transformers. Their configs are the reference's, field for
+field; qwen2-0.5b trains on one card at full size, the others' full sizes
+need the sharding the port does not have yet (``runtime/sharding.py``).
 """
 from __future__ import annotations
 
@@ -10,6 +13,9 @@ from repro_torch.models.config import ModelConfig, reduced_for_smoke
 
 _MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "gemma-2b": "repro_torch.configs.gemma_2b",
 }
 
 

@@ -19,6 +19,14 @@
 // valid key (Sq > Sk, row < Sq - Sk) sees exp(s - m) = exp(0) = 1 for every
 // key and comes out as the mean of v over all Sk keys, not 0 and not NaN.
 //
+// Row statistics, for the backward (flash_attention_bwd.cu): given non-null
+// m and l pointers, both routes also store each row's max m (natural-log
+// domain, -1e30 exactly for a row with no key) and its l (after l == 0 ->
+// 1) into (B, Hq, Sq) f32 arrays; a null pointer stores nothing and leaves
+// the kernel as it was. m and l stay apart because -1e30 + log(Sk) rounds
+// back to -1e30 in f32 (a backward from lse would weigh each key of a row
+// with no key by 1, not 1 / Sk).
+//
 // What bounds it: operations. At the serve path's prefill shapes (q
 // (2, 14, 8192, 64), k/v (2, 2, 8192, 64), bf16) the causal work is
 // 4 B Hq D S (S + 1) / 2 = 2.41e11 flop per launch against ~67 MB of inputs
@@ -132,6 +140,8 @@ struct Params {
   int sq, sk, group;
   float scale;
   int causal;
+  float* m;  // (b, hq, sq) row statistics, or null
+  float* l;
 };
 
 template <int D>
@@ -159,6 +169,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const Params p) {
   const int b = blockIdx.z;
   const int hk = h / p.group;
   const int offset = p.sk - p.sq;
+  const int64_t stat0 = (static_cast<int64_t>(b) * gridDim.y + h) * p.sq;
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -312,6 +323,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const Params p) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.sq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];
+    if (p.m != nullptr && tx == 0) {  // the 16 threads of a row hold the same m, l
+      p.m[stat0 + row] = m[i];
+      p.l[stat0 + row] = li;
+    }
     T* orow = o + row * p.o_ss;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g) {
@@ -367,6 +382,8 @@ struct TcParams {
   float scale_log2;          // scale * log2(e)
   int causal;
   int slots[3];              // q, k, v: the map slot (1..3) of S | of H << 2
+  float* m;                  // (b, hq, sq) row statistics, or null
+  float* l;
 };
 
 // Shared-memory layout of one head dim: rows of one panel (kPanel elements
@@ -866,11 +883,17 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
   pin(o);
 
   T* out = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int64_t stat0 = (static_cast<int64_t>(b) * gridDim.x + h) * p.sq;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= p.sq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];
+    if (p.m != nullptr && col0 == 0) {  // the quad's 4 threads hold the same m, l
+      // m is in the log2 domain here; a row with no key keeps -1e30 exactly
+      p.m[stat0 + row] = m[i] == kMasked ? kMasked : m[i] * 0.6931471805599453f;
+      p.l[stat0 + row] = li;
+    }
     T* orow = out + row * p.o_ss + col0;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -978,13 +1001,13 @@ int launch_tc_dim(const void* q, const void* k, const void* v, const int64_t* ma
 
 // q, k, v, o: device pointers of float32; shapes q/o (b, hq, sq, d) and
 // k/v (b, hkv, sk, d). strides: 12 element strides, (b, h, s) for q, k, v, o
-// in that order; every d stride is 1. The caller makes the tensors' device
-// current. The one kernel goes on `stream`; nothing is synchronised or
-// allocated here.
+// in that order; every d stride is 1. m, l: null, or (b, hq, sq) f32 arrays
+// for the row statistics. The caller makes the tensors' device current. The
+// one kernel goes on `stream`; nothing is synchronised or allocated here.
 extern "C" int flash_attention_simt_launch(const void* q, const void* k, const void* v, void* o,
                                            const int64_t* strides, int b, int hq, int hkv,
                                            int sq, int sk, int d, float scale, int causal,
-                                           cudaStream_t stream) {
+                                           float* m, float* l, cudaStream_t stream) {
   if (q == nullptr || k == nullptr || v == nullptr || o == nullptr || strides == nullptr ||
       b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 || b > 65535 ||
       hq > 65535) {
@@ -1012,6 +1035,8 @@ extern "C" int flash_attention_simt_launch(const void* q, const void* k, const v
   p.group = hq / hkv;
   p.scale = scale;
   p.causal = causal;
+  p.m = m;
+  p.l = l;
   return launch_dim<float>(p, b, hq, d, stream);
 }
 
@@ -1020,12 +1045,14 @@ extern "C" int flash_attention_simt_launch(const void* q, const void* k, const v
 // (D first, then S, H, B in the order of their strides), the byte strides of
 // dims 1..3 (multiples of 16) and the slots of S and H (S | H << 2).
 // o: (b, hq, sq, d) of `dtype` with element strides o_strides (b, h, s) and
-// unit stride in d. The caller makes the tensors' device current. The one
-// kernel goes on `stream`; nothing is synchronised or allocated here.
+// unit stride in d. m, l: null, or (b, hq, sq) f32 arrays for the row
+// statistics. The caller makes the tensors' device current. The one kernel
+// goes on `stream`; nothing is synchronised or allocated here.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                                             const int64_t* maps, const int64_t* o_strides, int b,
                                             int hq, int hkv, int sq, int sk, int d, int dtype,
-                                            float scale, int causal, cudaStream_t stream) {
+                                            float scale, int causal, float* m, float* l,
+                                            cudaStream_t stream) {
   if (q == nullptr || k == nullptr || v == nullptr || o == nullptr || maps == nullptr ||
       o_strides == nullptr || b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 ||
       sk <= 0 || b > 65535 || hq > 65535) {
@@ -1041,6 +1068,8 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   p.group = hq / hkv;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.causal = causal;
+  p.m = m;
+  p.l = l;
   switch (dtype) {
     case 1:
       return launch_tc_dim<__nv_bfloat16>(q, k, v, maps, p, b, hq, d,

@@ -1,9 +1,12 @@
-"""Hand-written CUDA kernel for forward causal GQA flash attention (sm_90a).
+"""Hand-written CUDA kernels for causal GQA flash attention (sm_90a): the
+forward and its backward.
 
-The source is ``csrc/flash_attention.cu``; its header says which TPU kernel
-it replaces, what bounds it and how it is laid out. ``kernels/_build.py``
-compiles it with ``nvcc`` on first use; this module loads the shared
-library with ``ctypes`` and launches it on PyTorch's current stream.
+The sources are ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (dq, dk, dv); their headers say which TPU
+kernel each replaces (the backward: none), what bounds it and how it is
+laid out. ``kernels/_build.py`` compiles each with ``nvcc`` on first use;
+this module loads the shared libraries with ``ctypes`` and launches them on
+PyTorch's current stream.
 
 The dtype alone fixes the route (:func:`route`): bfloat16 and float16 run
 on the tensor cores (``wgmma``, fed by TMA), float32 on the CUDA cores. A
@@ -12,9 +15,16 @@ call that its route cannot take raises ``ValueError``; nothing is re-routed.
 strides and data pointers, so they run without a card. q, k, v and the
 output go in through their (b, h, s) strides with unit stride in the head
 dim, so the model's transposed v view needs no copy.
+
+The forward stores each row's softmax statistics m and l when asked
+(``stats=True``); :func:`flash_attention_bwd` takes them with the forward's
+output and the output's gradient. Its route is fixed by dtype as well:
+bfloat16 and float16 on the tensor cores (``mma.sync``), float32 on the CUDA
+cores; :func:`bwd_launch_plan` holds its checks.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from pathlib import Path
@@ -25,47 +35,99 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+SOURCE_BWD = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (32, 64, 128)
 ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma", torch.float16: "wgmma"}
+BWD_ROUTES = {torch.float32: "simt", torch.bfloat16: "mma", torch.float16: "mma"}
 _DTYPES = {torch.bfloat16: 1, torch.float16: 2}  # the tensor-core entry's codes
+_BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_STRIDE_BYTES = 1 << 40  # TMA's limit on a tensor map's byte strides
 
 _lib_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_thread = threading.local()  # this thread's launches (thread_launches)
+_libs: dict[str, ctypes.CDLL] = {}
+_thread = threading.local()  # this thread's launch counts (thread_counts)
+
+
+def thread_counts() -> dict[str, int]:
+    """The calling thread's launch counts, ``{"fwd", "bwd"}`` (a proxy
+    session's own, in a daemon that serves several), or inside
+    :func:`credit` the counts it was given."""
+    owner = getattr(_thread, "owner", None)
+    if owner is not None:
+        return owner
+    if not hasattr(_thread, "counts"):
+        _thread.counts = {"fwd": 0, "bwd": 0}
+    return _thread.counts
+
+
+@contextlib.contextmanager
+def credit(counts: dict[str, int]):
+    """Count the calling thread's launches in ``counts`` (another thread's
+    :func:`thread_counts`) inside the block. Autograd runs a CUDA backward,
+    and the forward that remat recomputes in it, on its own thread for the
+    device: ``ops.flash_attention`` and ``models.transformer`` credit those
+    launches to the thread that ran the forward."""
+    before = getattr(_thread, "owner", None)
+    _thread.owner = counts
+    try:
+        yield
+    finally:
+        _thread.owner = before
 
 
 def thread_launches() -> int:
-    """The kernel's launches made by the calling thread so far (a proxy
-    session's own, in a daemon that serves several)."""
-    return getattr(_thread, "launches", 0)
+    """The forward kernel's launches made for the calling thread so far."""
+    return thread_counts()["fwd"]
+
+
+def thread_bwd_launches() -> int:
+    """The backward's calls made for the calling thread so far."""
+    return thread_counts()["bwd"]
 
 
 def build() -> Path:
-    """Compile the kernel's shared library (once per source/flags hash)."""
+    """Compile the forward's shared library (once per source/flags hash)."""
     return _build.build(SOURCE)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def build_bwd() -> Path:
+    """Compile the backward's shared library (once per source/flags hash)."""
+    return _build.build(SOURCE_BWD)
+
+
+def _declare(lib: ctypes.CDLL, name: str) -> None:
+    ptr, i64p, c_int, c_float = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                                 ctypes.c_int, ctypes.c_float)
+    if name == "fwd":
+        lib.flash_attention_simt_launch.argtypes = [
+            ptr, ptr, ptr, ptr, i64p,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, ptr, ptr, ptr,
+        ]
+        lib.flash_attention_simt_launch.restype = c_int
+        lib.flash_attention_wgmma_launch.argtypes = [
+            ptr, ptr, ptr, ptr, i64p, i64p,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, ptr, ptr, ptr,
+        ]
+        lib.flash_attention_wgmma_launch.restype = c_int
+        lib.flash_attention_error_string.argtypes = [c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    else:
+        lib.flash_attention_bwd_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64p,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, ptr,
+        ]
+        lib.flash_attention_bwd_launch.restype = c_int
+        lib.flash_attention_bwd_error_string.argtypes = [c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+
+
+def _load(name: str = "fwd") -> ctypes.CDLL:
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ptr, i64p, c_int = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int
-            lib.flash_attention_simt_launch.argtypes = [
-                ptr, ptr, ptr, ptr, i64p,
-                c_int, c_int, c_int, c_int, c_int, c_int, ctypes.c_float, c_int, ptr,
-            ]
-            lib.flash_attention_simt_launch.restype = c_int
-            lib.flash_attention_wgmma_launch.argtypes = [
-                ptr, ptr, ptr, ptr, i64p, i64p,
-                c_int, c_int, c_int, c_int, c_int, c_int, c_int, ctypes.c_float, c_int, ptr,
-            ]
-            lib.flash_attention_wgmma_launch.restype = c_int
-            lib.flash_attention_error_string.argtypes = [c_int]
-            lib.flash_attention_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build() if name == "fwd" else build_bwd()))
+            _declare(lib, name)
+            _libs[name] = lib
+        return _libs[name]
 
 
 def route(dtype: torch.dtype) -> str:
@@ -142,11 +204,14 @@ def launch_plan(dtype: torch.dtype, shapes, strides, data_ptrs):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: float | None = None) -> torch.Tensor:
+                    causal: bool = True, scale: float | None = None,
+                    stats: bool = False):
     """Causal GQA attention on the card. q: (B,Hq,Sq,D); k, v: (B,Hkv,Sk,D).
 
     Returns (B, Hq, Sq, D) in q's dtype, equal within rounding to
-    ``kernels.ref.flash_attention_plain``. Takes CUDA tensors of one dtype
+    ``kernels.ref.flash_attention_plain``; with ``stats`` it returns
+    ``(out, m, l)``, m and l the rows' softmax statistics as (B, Hq, Sq)
+    f32 (what the backward takes). Takes CUDA tensors of one dtype
     (float32, bfloat16 or float16) on one device, D in {32, 64, 128},
     unit stride in D and, for bfloat16 and float16, the layout TMA reads
     (:func:`tensor_map`); raises on anything else. Its own tiling needs no
@@ -166,27 +231,129 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv, Sk = k.shape[1], k.shape[2]
     scale_f = float(scale if scale is not None else 1.0 / np.sqrt(D))
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    m = l = None
+    if stats:
+        m = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    stat_ptrs = (m.data_ptr() if stats else None, l.data_ptr() if stats else None)
     lib = _load()
     with torch.cuda.device(q.device):  # the launch's device, restored after
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
         if r == "wgmma":
             err = lib.flash_attention_wgmma_launch(
-                *ptrs, (ctypes.c_int64 * 24)(*(x for m in maps for x in m)),
+                *ptrs, (ctypes.c_int64 * 24)(*(x for mp in maps for x in mp)),
                 (ctypes.c_int64 * 3)(*out.stride()[:3]),
-                B, Hq, Hkv, Sq, Sk, D, _DTYPES[q.dtype], scale_f, int(causal), stream)
+                B, Hq, Hkv, Sq, Sk, D, _DTYPES[q.dtype], scale_f, int(causal),
+                *stat_ptrs, stream)
         else:
             strides = (ctypes.c_int64 * 12)(*(s for t in (*ts, out) for s in t.stride()[:3]))
             err = lib.flash_attention_simt_launch(
-                *ptrs, strides, B, Hq, Hkv, Sq, Sk, D, scale_f, int(causal), stream)
+                *ptrs, strides, B, Hq, Hkv, Sq, Sk, D, scale_f, int(causal),
+                *stat_ptrs, stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[r] += 1
-    _thread.launches = thread_launches() + 1
-    return out
+    thread_counts()["fwd"] += 1
+    return (out, m, l) if stats else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+
+
+def bwd_launch_plan(dtype: torch.dtype, shapes, strides, data_ptrs) -> str:
+    """Route of one backward call, from q, k, v, o and dO's dtype, shapes,
+    strides and data pointers alone: ``"mma"`` (bfloat16, float16) or
+    ``"simt"`` (float32). The forward's checks on q, k and v, plus: o and dO
+    shaped like q, unit stride in the head dim, and on the tensor-core route
+    rows that 16-byte loads can read (every operand's data pointer and the
+    byte strides of its dims longer than 1 multiples of 16). Raises
+    ``ValueError`` on anything the route cannot take."""
+    if dtype not in BWD_ROUTES:
+        raise ValueError(f"flash_attention backward kernel takes float32, bfloat16 "
+                         f"or float16, not {dtype}")
+    launch_plan(torch.float32, shapes[:3], strides[:3], data_ptrs[:3])
+    qs = tuple(shapes[0])
+    for name, shape in zip(("o", "dO"), shapes[3:]):
+        if tuple(shape) != qs:
+            raise ValueError(f"flash_attention backward: {name} {tuple(shape)} is not "
+                             f"shaped like q {qs}")
+    if any(st[3] != 1 for st in strides[3:]):
+        raise ValueError("flash_attention kernel needs unit stride in the head dim")
+    route_ = BWD_ROUTES[dtype]
+    if route_ == "mma":
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for name, shape, st, ptr in zip(("q", "k", "v", "o", "dO"), shapes, strides,
+                                        data_ptrs):
+            tensor_map(name, tuple(shape), st, itemsize, ptr)  # raises where 16 B cannot read
+    return route_
+
+
+def check_stats(shape, m: torch.Tensor, l: torch.Tensor) -> None:
+    """The row statistics the backward takes: contiguous float32 of
+    ``shape`` (B, Hq, Sq) each; raises ``ValueError`` otherwise."""
+    for name, st in (("m", m), ("l", l)):
+        if st.dtype != torch.float32 or tuple(st.shape) != tuple(shape) \
+                or not st.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be contiguous "
+                             f"float32 {tuple(shape)}, not {st.dtype} {tuple(st.shape)}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        scale: float | None = None):
+    """Gradients of :func:`flash_attention` on the card: ``(dq, dk, dv)``.
+
+    q, k, v and the forward's output ``o`` with its row statistics ``m``,
+    ``l`` (``flash_attention(..., stats=True)``), and ``do``, the output's
+    gradient. Returns contiguous dq (B, Hq, Sq, D) and dk, dv (B, Hkv, Sk,
+    D) in their inputs' dtype, equal within rounding to
+    ``kernels.ref.flash_attention_bwd_plain``, the same bits from run to run
+    (no atomics). A ``do`` without unit stride in the head dim is copied
+    first; everything else the kernel cannot take raises. Each call
+    launches two kernels in order (dq and Delta = rowsum(dO * O), then dk
+    and dv): ``flash_attention_bwd.launches`` counts calls,
+    ``launches_by_route`` calls per route, and :func:`thread_bwd_launches`
+    the calling thread's.
+    """
+    if do.dim() == 4 and do.stride(3) != 1:
+        do = do.contiguous()
+    ts = (q, k, v, o, do)
+    if not all(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+               for t in (*ts, m, l)):
+        raise ValueError("flash_attention backward kernel needs CUDA tensors")
+    if len({t.device for t in (*ts, m, l)}) != 1 or len({t.dtype for t in ts}) != 1:
+        raise ValueError("flash_attention backward kernel needs q, k, v, o, dO on one "
+                         "device with one dtype")
+    r = bwd_launch_plan(q.dtype, [t.shape for t in ts], [t.stride() for t in ts],
+                        [t.data_ptr() for t in ts])
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    check_stats((B, Hq, Sq), m, l)
+    scale_f = float(scale if scale is not None else 1.0 / np.sqrt(D))
+    dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Hkv, Sk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = _load("bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        strides = (ctypes.c_int64 * 15)(*(s for t in ts for s in t.stride()[:3]))
+        err = lib.flash_attention_bwd_launch(
+            *(t.data_ptr() for t in (*ts, m, l, delta, dq, dk, dv)), strides,
+            B, Hq, Hkv, Sq, Sk, D, _BWD_DTYPES[q.dtype], scale_f, int(causal), stream)
+    if err != 0:
+        msg = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attention backward launch failed: {msg} ({err})")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[r] += 1
+    thread_counts()["bwd"] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"mma": 0, "simt": 0}

@@ -4,7 +4,9 @@ A tensor on the CPU goes to the kernel's plain PyTorch version (the
 digests that cross to the host, ``host_chunk_digests``, take the numpy
 oracle there); a CUDA tensor goes to the hand-written kernel, and if the
 kernel cannot run the call raises — it never falls back to the plain
-version or to the host.
+version or to the host. ``flash_attention`` is differentiable: its gradient
+is the backward kernel on the card and the backward's plain version on the
+CPU.
 """
 from __future__ import annotations
 
@@ -122,6 +124,41 @@ def tree_chunk_digests(state: Any, chunk_bytes: int) -> dict[str, list[int]]:
             for path, leaf in flat.items()}
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The forward with its row statistics, saved with q, k, v and the
+    output for the backward: the kernels on the card, the plain versions
+    (at the call's blocks) on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, bq, bk):
+        if q.device.type == "cpu":
+            out, m, l = _ref.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                                   block_q=bq, block_k=bk,
+                                                   return_stats=True)
+        else:
+            out, m, l = _flash.flash_attention(q, k, v, causal=causal, scale=scale,
+                                               stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.args = (causal, scale, bq, bk)
+        # the backward may run on autograd's own thread: credit this one's
+        ctx.counts = _flash.thread_counts()
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, m, l = ctx.saved_tensors
+        causal, scale, bq, bk = ctx.args
+        with _flash.credit(ctx.counts):
+            if q.device.type == "cpu":
+                grads = _ref.flash_attention_bwd_plain(q, k, v, out, m, l, do, causal=causal,
+                                                       scale=scale, block_q=bq, block_k=bk)
+            else:
+                grads = _flash.flash_attention_bwd(q, k, v, out, m, l, do, causal=causal,
+                                                   scale=scale)
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -137,7 +174,10 @@ def flash_attention(
     The reference's entry point and its checks: Hq must divide by Hkv, and
     Sq, Sk by ``min(block_q, Sq)``, ``min(block_k, Sk)``. On the CPU the
     plain version runs at those blocks; on the card the kernel, whose own
-    tiling does not depend on them.
+    tiling does not depend on them. Differentiable in q, k and v: when a
+    gradient is being taken the forward also keeps its row statistics and
+    the backward runs the backward kernel (card) or its plain version
+    (CPU); otherwise the forward alone runs, with no statistics.
     """
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -146,9 +186,11 @@ def flash_attention(
     bq, bk = min(block_q, Sq), min(block_k, Sk)
     if Sq % bq or Sk % bk:
         raise ValueError(f"seq lengths ({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash_attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, scale, bq, bk)
     if q.device.type == "cpu":
         return _ref.flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                           block_q=bq, block_k=bk)
-    if q.device.type == "cuda":
-        return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
-    raise ValueError(f"no flash_attention kernel for device {q.device}")
+    return _flash.flash_attention(q, k, v, causal=causal, scale=scale)

@@ -105,11 +105,28 @@ def chunk_digests_plain(x: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
 _MASKED = -1e30
 
 
+def _blocks(q: torch.Tensor, k: torch.Tensor, block_q: int, block_k: int):
+    """(g, bq, bk) of a blocked attention call, with the reference's checks."""
+    Hq, Sq = q.shape[1], q.shape[2]
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"seq lengths ({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
+    return Hq // Hkv, bq, bk
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 arithmetic, f64 for f64 inputs (gradcheck's)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, scale: float | None = None,
-    block_q: int = 128, block_k: int = 128,
-) -> torch.Tensor:
+    block_q: int = 128, block_k: int = 128, return_stats: bool = False,
+):
     """Blocked online-softmax attention, the math of the flash kernel.
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); kv head = h // (Hq // Hkv).
@@ -119,27 +136,28 @@ def flash_attention_plain(
     accumulator carried over key blocks; ``l == 0 -> 1``; output in q's
     dtype. A row with no valid key comes out as the mean of v over all Sk.
     ``Sq`` and ``Sk`` must divide by ``min(block_q, Sq)``, ``min(block_k, Sk)``.
+    With ``return_stats`` it returns ``(out, m, l)``: each row's max logit
+    (-1e30 for a row with no key) and its ``l`` (after ``l == 0 -> 1``), as
+    (B, Hq, Sq) f32, what the kernel stores for the backward.
     """
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if Hq % Hkv:
-        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
-    g = Hq // Hkv
-    bq, bk = min(block_q, Sq), min(block_k, Sk)
-    if Sq % bq or Sk % bk:
-        raise ValueError(f"seq lengths ({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
+    g, bq, bk = _blocks(q, k, block_q, block_k)
+    acc_t = _acc_dtype(q.dtype)
     scale = float(scale if scale is not None else 1.0 / np.sqrt(D))
     offset = Sk - Sq
     qg = q.reshape(B, Hkv, g, Sq, D)
     out = torch.empty((B, Hkv, g, Sq, D), dtype=q.dtype, device=q.device)
+    m_all = torch.empty((B, Hkv, g, Sq, 1), dtype=acc_t, device=q.device)
+    l_all = torch.empty_like(m_all)
     for q0 in range(0, Sq, bq):
-        qi = qg[:, :, :, q0 : q0 + bq].float()
-        acc = torch.zeros((B, Hkv, g, bq, D), dtype=torch.float32, device=q.device)
-        m = torch.full((B, Hkv, g, bq, 1), _MASKED, dtype=torch.float32, device=q.device)
-        l = torch.zeros((B, Hkv, g, bq, 1), dtype=torch.float32, device=q.device)
+        qi = qg[:, :, :, q0 : q0 + bq].to(acc_t)
+        acc = torch.zeros((B, Hkv, g, bq, D), dtype=acc_t, device=q.device)
+        m = torch.full((B, Hkv, g, bq, 1), _MASKED, dtype=acc_t, device=q.device)
+        l = torch.zeros((B, Hkv, g, bq, 1), dtype=acc_t, device=q.device)
         for k0 in range(0, Sk, bk):
-            kj = k[:, :, k0 : k0 + bk].float()
-            vj = v[:, :, k0 : k0 + bk].float()
+            kj = k[:, :, k0 : k0 + bk].to(acc_t)
+            vj = v[:, :, k0 : k0 + bk].to(acc_t)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj) * scale
             if causal:
                 rows = torch.arange(q0, q0 + bq, device=q.device)[:, None] + offset
@@ -153,7 +171,75 @@ def flash_attention_plain(
             m = m_new
         l = torch.where(l == 0.0, 1.0, l)
         out[:, :, :, q0 : q0 + bq] = (acc / l).to(q.dtype)
-    return out.reshape(B, Hq, Sq, D)
+        m_all[:, :, :, q0 : q0 + bq] = m
+        l_all[:, :, :, q0 : q0 + bq] = l
+    out = out.reshape(B, Hq, Sq, D)
+    if not return_stats:
+        return out
+    return out, m_all.reshape(B, Hq, Sq), l_all.reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    m: torch.Tensor, l: torch.Tensor, do: torch.Tensor, *,
+    causal: bool = True, scale: float | None = None,
+    block_q: int = 128, block_k: int = 128,
+):
+    """Gradients of :func:`flash_attention_plain`, the math of the backward
+    kernel block by block: ``(dq, dk, dv)`` in their inputs' dtypes.
+
+    Takes the forward's output ``o``, its row statistics ``m``, ``l``
+    ((B, Hq, Sq)) and the output's gradient ``do``. In f32:
+    ``Delta = rowsum(do * o)``; per (q block, key block) the masked logits
+    (-1e30 where ``col > row + Sk - Sq``), ``P = exp(s - m) / l``,
+    ``dP = do . v``, ``dS = P * (dP - Delta)`` set to 0 at masked positions
+    (``torch.where`` passes no gradient to a masked logit, and a row with no
+    key has ``P = 1 / Sk`` there); ``dv += P^T do``, ``dk += dS^T q``,
+    ``dq += dS k``, the last two times ``scale``. dk and dv sum over the q
+    heads of each kv head's group. A key block that every row of a q block
+    masks, in a q block without rows that have no key, adds nothing and is
+    skipped.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g, bq, bk = _blocks(q, k, block_q, block_k)
+    acc_t = _acc_dtype(q.dtype)
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(D))
+    offset = Sk - Sq
+    shape5 = (B, Hkv, g, Sq)
+    qg = q.reshape(*shape5, D)
+    dog = do.reshape(*shape5, D).to(acc_t)
+    delta = (dog * o.reshape(*shape5, D).to(acc_t)).sum(dim=-1, keepdim=True)
+    mg = m.reshape(*shape5, 1).to(acc_t)
+    lg = l.reshape(*shape5, 1).to(acc_t)
+    dq = torch.zeros((*shape5, D), dtype=acc_t, device=q.device)
+    dk = torch.zeros((B, Hkv, Sk, D), dtype=acc_t, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, Sq, bq):
+        qi = qg[:, :, :, q0 : q0 + bq].to(acc_t)
+        doi = dog[:, :, :, q0 : q0 + bq]
+        mi, li, di = (t[:, :, :, q0 : q0 + bq] for t in (mg, lg, delta))
+        for k0 in range(0, Sk, bk):
+            if causal and q0 + offset >= 0 and k0 > q0 + bq - 1 + offset:
+                continue
+            kj = k[:, :, k0 : k0 + bk].to(acc_t)
+            vj = v[:, :, k0 : k0 + bk].to(acc_t)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj) * scale
+            if causal:
+                rows = torch.arange(q0, q0 + bq, device=q.device)[:, None] + offset
+                cols = torch.arange(k0, k0 + bk, device=q.device)[None, :]
+                ok = cols <= rows
+                s = torch.where(ok, s, _MASKED)
+            p = torch.exp(s - mi) / li
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", doi, vj)
+            ds = p * (dp - di)
+            if causal:
+                ds = torch.where(ok, ds, 0.0)
+            dv[:, :, k0 : k0 + bk] += torch.einsum("bhgqk,bhgqd->bhkd", p, doi)
+            dk[:, :, k0 : k0 + bk] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qi)
+            dq[:, :, :, q0 : q0 + bq] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kj)
+    return ((dq * scale).reshape(B, Hq, Sq, D).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
 
 
 def mha_reference(

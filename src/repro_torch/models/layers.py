@@ -6,8 +6,8 @@ Conventions, as in the reference's ``models/layers.py``:
   - params bf16 (config.param_dtype), accumulation/normalization in f32;
   - attention has the reference's three lowerings: dense (short S),
     chunked (long S: blocked online softmax, which on the card is the
-    hand-written flash kernel, forward only) and decode (one query token
-    against a cache).
+    hand-written flash kernel, its gradient the hand-written backward
+    kernel) and decode (one query token against a cache).
 """
 from __future__ import annotations
 
@@ -104,18 +104,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Long-S lowering: the reference's ``_chunked_attention`` (bounded
     memory, online softmax over key blocks), through ``ops.flash_attention``.
 
-    On the CPU that is the blocked plain version, which autograd can
-    differentiate; on the card it is the flash kernel, which has no
-    backward, so asking for a gradient there raises rather than falling
-    back to the plain version.
+    On the CPU that is the blocked plain version and its plain backward; on
+    the card the flash kernel and, when a gradient is taken, the backward
+    kernel (neither ever gives way to the plain version).
     """
-    if q.device.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "long-S attention on the card runs the forward-only flash_attention "
-            "kernel: its backward (training at S >= attn_chunked_threshold on "
-            "CUDA) is not ported yet"
-        )
     return ops.flash_attention(q, k, v, causal=causal, scale=scale,
                                block_q=block_q, block_k=block_k)
 

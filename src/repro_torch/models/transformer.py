@@ -16,17 +16,30 @@ post-RoPE k/v cache, ``decode_step`` runs one token against it. The cache
 is the server's own buffer, so a decode step writes the new k/v into it in
 place (the reference returns a new array).
 
-Not ported: activation rematerialisation (``cfg.remat``, which only saves
-memory), MoE blocks, ``prefix_len`` (prefix-LM masking).
+Training rematerialises each layer as the reference's ``_remat`` does
+(``cfg.remat``): ``"none"`` keeps every activation, ``"full"`` recomputes
+the layer in the backward, ``"dots"`` keeps the outputs of matmuls without
+batch dims and recomputes the rest. Remat changes memory, never values.
+
+Not ported: MoE blocks, ``prefix_len`` (prefix-LM masking; it belongs with
+the multimodal models that use it).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -61,18 +74,6 @@ class Attention(nn.Module):
             self.bk = _param(L, KV, dtype=dtype)
             self.bv = _param(L, KV, dtype=dtype)
 
-    def qkv(self, cfg: ModelConfig, layer: int, h: torch.Tensor):
-        B, S, _ = h.shape
-        q = h @ self.wq[layer]
-        k = h @ self.wk[layer]
-        v = h @ self.wv[layer]
-        if cfg.qkv_bias:
-            q, k, v = q + self.bq[layer], k + self.bk[layer], v + self.bv[layer]
-        q = q.reshape(B, S, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-        k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-        v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-        return q, k, v
-
 
 class MLP(nn.Module):
     """wi/wg (L, D, F) and wo (L, F, D); wg only for gated MLPs."""
@@ -85,9 +86,80 @@ class MLP(nn.Module):
         if cfg.mlp_type in ("swiglu", "geglu"):
             self.wg = _param(L, D, F, dtype=dtype)
 
-    def forward(self, cfg: ModelConfig, layer: int, x: torch.Tensor) -> torch.Tensor:
-        wg = self.wg[layer] if cfg.mlp_type in ("swiglu", "geglu") else None
-        return mlp_apply(self.wi[layer], self.wo[layer], wg, x, cfg.mlp_type)
+
+def _qkv(cfg: ModelConfig, w: dict, h: torch.Tensor):
+    B, S, _ = h.shape
+    q = h @ w["wq"]
+    k = h @ w["wk"]
+    v = h @ w["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    return q, k, v
+
+
+def _finish(cfg: ModelConfig, w: dict, x: torch.Tensor, h: torch.Tensor,
+            attn_out: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    attn_out = attn_out.transpose(1, 2).reshape(B, S, cfg.q_dim)
+    attn_out = attn_out @ w["attn_wo"]
+    if cfg.parallel_block:
+        return x + attn_out + mlp_apply(w["wi"], w["mlp_wo"], w.get("wg"), h, cfg.mlp_type)
+    x = x + attn_out
+    h2 = rmsnorm(x, w["ln2"], cfg.norm_eps)
+    return x + mlp_apply(w["wi"], w["mlp_wo"], w.get("wg"), h2, cfg.mlp_type)
+
+
+def _layer(cfg: ModelConfig, w: dict, x: torch.Tensor, positions: torch.Tensor):
+    """One layer over (B, S, D) from its weights ``w`` -> (x, post-RoPE k,
+    v (B, Hkv, S, Dh)). A function of its arguments alone, so remat can run
+    it again in the backward."""
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, w, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    attn_out = multihead_attention(
+        q, k, v, causal=True,
+        chunked_threshold=cfg.attn_chunked_threshold,
+        block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+    )
+    return _finish(cfg, w, x, h, attn_out), k, v
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep ``x @ W`` (aten ``mm`` and
+    ``addmm``), recompute everything else (batched products, norms, RoPE,
+    attention, activations)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _credited(fn):
+    """``fn`` counting its kernel launches for the calling thread, also
+    when the backward recomputes it on autograd's thread for the device."""
+    counts = _flash.thread_counts()
+
+    def run(*args):
+        with _flash.credit(counts):
+            return fn(*args)
+
+    return run
+
+
+def _remat(cfg: ModelConfig, fn):
+    """The reference's ``_remat``: ``fn`` as the backward will see it."""
+    if cfg.remat == "none":
+        return fn
+    fn = _credited(fn)
+    if cfg.remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context)
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat {cfg.remat!r}: none, dots or full")
 
 
 class Blocks(nn.Module):
@@ -99,19 +171,29 @@ class Blocks(nn.Module):
         if not cfg.parallel_block:
             self.ln2 = _param(cfg.num_layers, cfg.d_model, dtype=dtype)
 
+    def weights(self, cfg: ModelConfig, i: int) -> dict:
+        """Layer i's slices of the stacked weights."""
+        w = {"ln1": self.ln1[i], "wq": self.attn.wq[i], "wk": self.attn.wk[i],
+             "wv": self.attn.wv[i], "attn_wo": self.attn.wo[i], "wi": self.mlp.wi[i],
+             "mlp_wo": self.mlp.wo[i]}
+        if cfg.qkv_bias:
+            w.update(bq=self.attn.bq[i], bk=self.attn.bk[i], bv=self.attn.bv[i])
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            w["wg"] = self.mlp.wg[i]
+        if not cfg.parallel_block:
+            w["ln2"] = self.ln2[i]
+        return w
+
     def layer(self, cfg: ModelConfig, i: int, x: torch.Tensor,
               positions: torch.Tensor):
-        """Layer i over (B, S, D) -> (x, post-RoPE k, v (B, Hkv, S, Dh))."""
-        h = rmsnorm(x, self.ln1[i], cfg.norm_eps)
-        q, k, v = self.attn.qkv(cfg, i, h)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        attn_out = multihead_attention(
-            q, k, v, causal=True,
-            chunked_threshold=cfg.attn_chunked_threshold,
-            block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
-        )
-        return self._finish(cfg, i, x, h, attn_out), k, v
+        """Layer i over (B, S, D) -> (x, post-RoPE k, v (B, Hkv, S, Dh)),
+        rematerialised per ``cfg.remat`` when a gradient is being taken."""
+        w = self.weights(cfg, i)
+        fn = functools.partial(_layer, cfg)
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for t in w.values())):
+            fn = _remat(cfg, fn)
+        return fn(w, x, positions)
 
     def decode_layer(self, cfg: ModelConfig, i: int, x: torch.Tensor, pos: int,
                      positions: torch.Tensor, k_cache: torch.Tensor,
@@ -119,25 +201,15 @@ class Blocks(nn.Module):
         """Layer i for one token (B, 1, D) at ``pos`` (``positions`` is
         ``[pos]`` on x's device); writes its k/v into the layer's cache
         (B, Hkv, Smax, Dh) in place."""
-        h = rmsnorm(x, self.ln1[i], cfg.norm_eps)
-        q, k, v = self.attn.qkv(cfg, i, h)
+        w = self.weights(cfg, i)
+        h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, w, h)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         k_cache[:, :, pos] = k[:, :, 0].to(k_cache.dtype)
         v_cache[:, :, pos] = v[:, :, 0].to(v_cache.dtype)
         attn_out = decode_attention(q, k_cache, v_cache, pos)
-        return self._finish(cfg, i, x, h, attn_out)
-
-    def _finish(self, cfg: ModelConfig, i: int, x: torch.Tensor, h: torch.Tensor,
-                attn_out: torch.Tensor) -> torch.Tensor:
-        B, S, _ = x.shape
-        attn_out = attn_out.transpose(1, 2).reshape(B, S, cfg.q_dim)
-        attn_out = attn_out @ self.attn.wo[i]
-        if cfg.parallel_block:
-            return x + attn_out + self.mlp(cfg, i, h)
-        x = x + attn_out
-        h2 = rmsnorm(x, self.ln2[i], cfg.norm_eps)
-        return x + self.mlp(cfg, i, h2)
+        return _finish(cfg, w, x, h, attn_out)
 
 
 class Transformer(nn.Module):

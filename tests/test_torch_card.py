@@ -288,15 +288,166 @@ def test_ops_flash_on_card_never_runs_the_plain_version(cuda, monkeypatch):
 
 
 def test_long_s_attention_on_card_refuses_a_gradient(cuda):
+    """The long-S lowering on the card used to refuse a gradient; it now
+    takes the backward kernel (one call per backward, on the CUDA-core
+    route for f32), never the plain version, and without a gradient the
+    forward alone runs."""
     from repro_torch.models.layers import multihead_attention
 
     q, k, v = _flash_inputs(cuda, 1, 2, 1, 128, 128, 64, torch.float32)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        multihead_attention(q, k, v, chunked_threshold=64, block_q=32, block_k=32)
+    bwd = flash_attention.flash_attention_bwd
+    before = (bwd.launches, bwd.launches_by_route["simt"])
+    out = multihead_attention(q, k, v, chunked_threshold=64, block_q=32, block_k=32)
+    (dq,) = torch.autograd.grad(out, (q,), torch.ones_like(out))
+    assert (bwd.launches, bwd.launches_by_route["simt"]) == tuple(n + 1 for n in before)
+    assert dq.shape == q.shape and bool(dq.isfinite().all())
     with torch.no_grad():
-        out = multihead_attention(q, k, v, chunked_threshold=64, block_q=32, block_k=32)
-    assert out.shape == q.shape
+        plain = multihead_attention(q, k, v, chunked_threshold=64, block_q=32, block_k=32)
+    assert torch.equal(plain, out.detach())
+    assert (bwd.launches, bwd.launches_by_route["simt"]) == tuple(n + 1 for n in before)
+
+
+# flash backward vs its plain version per gradient tensor, (a, r) in
+# |got - want| <= a max|want| + r |want| (chip_smoke.py's FLASH_BWD_TOL, which
+# says why)
+FLASH_BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -7),
+                 torch.float16: (2.0 ** -10, 2.0 ** -10)}
+
+
+def _flash_bwd_inputs(cuda, case, dtype, seed=0):
+    B, Hq, Hkv, Sq, Sk, D, causal = case
+    q, k, v = _flash_inputs(cuda, B, Hq, Hkv, Sq, Sk, D, dtype, seed)
+    v = v.transpose(1, 2).contiguous().transpose(1, 2)  # the model's v view
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    o, m, l = flash_attention.flash_attention(q, k, v, causal=causal, stats=True)
+    return q, k, v, o, m, l, do
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_BWD_TOL))
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
+    B, Hq, Hkv, Sq, Sk, D, causal = case
+    ins = _flash_bwd_inputs(cuda, case, dtype)
+    bwd = flash_attention.flash_attention_bwd
+    route = "simt" if dtype == torch.float32 else "mma"
+    before, before_route = bwd.launches, bwd.launches_by_route[route]
+    got = bwd(*ins, causal=causal)
+    assert bwd.launches == before + 1 and bwd.launches_by_route[route] == before_route + 1
+    # the plain backward on the plain forward's output and statistics
+    q, k, v, _, _, _, do = ins
+    po, pm, pl = ref.flash_attention_plain(q, k, v, causal=causal, block_q=_block(Sq),
+                                           block_k=_block(Sk), return_stats=True)
+    want = ref.flash_attention_bwd_plain(q, k, v, po, pm, pl, do, causal=causal,
+                                         block_q=_block(Sq), block_k=_block(Sk))
+    a, r = FLASH_BWD_TOL[dtype]
+    for g, w, t in zip(got, want, ins[:3]):
+        assert g.dtype == dtype and g.shape == t.shape and g.is_contiguous()
+        top = float(w.float().abs().max())
+        assert bool(((g.float() - w.float()).abs() <= a * top + r * w.float().abs()).all())
+    if causal and Sq > Sk:  # rows with no key: dS is 0 at every position
+        assert bool((got[0][:, :, : Sq - Sk] == 0).all())
+
+
+def test_flash_forward_statistics(cuda):
+    """The statistics change no bit of the output and agree with the plain
+    version's (m exactly -1e30 on rows with no key)."""
+    for dtype in FLASH_TOL:
+        q, k, v = _flash_inputs(cuda, 1, 4, 2, 200, 120, 64, dtype)
+        out, m, l = flash_attention.flash_attention(q, k, v, stats=True)
+        assert torch.equal(out, flash_attention.flash_attention(q, k, v))
+        _, pm, pl = ref.flash_attention_plain(q, k, v, block_q=40, block_k=40,
+                                              return_stats=True)
+        assert bool((m[:, :, :80] == -1e30).all()) and bool((l[:, :, :80] == 120).all())
+        torch.testing.assert_close(m, pm, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(l, pl, atol=0, rtol=1e-5)
+
+
+def test_flash_bwd_same_bits_run_to_run(cuda):
+    """No atomics: dk and dv sum the group's heads in a fixed order."""
+    ins = _flash_bwd_inputs(cuda, (1, 14, 2, 2048, 2048, 64, True), torch.bfloat16)
+    first = flash_attention.flash_attention_bwd(*ins)
+    for _ in range(3):
+        again = flash_attention.flash_attention_bwd(*ins)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_tensor_core_route_refuses_misaligned_rows(cuda, dtype):
+    q, k, _, o, m, l, do = _flash_bwd_inputs(cuda, (1, 4, 2, 256, 256, 64, True), dtype)
+    strided, offset = _misaligned_v_views(cuda, dtype)
+    before = flash_attention.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        flash_attention.flash_attention_bwd(q, k, strided, o, m, l, do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention.flash_attention_bwd(q, k, offset, o, m, l, do)
+    assert flash_attention.flash_attention_bwd.launches == before
+
+
+def test_ops_flash_gradient_on_card_never_runs_the_plain_version(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "flash_attention_plain", refuse)
+    monkeypatch.setattr(ref, "flash_attention_bwd_plain", refuse)
+    q, k, v = (t.requires_grad_(True) for t in _flash_inputs(
+        cuda, 1, 4, 2, 256, 256, 64, torch.bfloat16))
+    before = (flash_attention.flash_attention.launches,
+              flash_attention.flash_attention_bwd.launches,
+              flash_attention.thread_launches(), flash_attention.thread_bwd_launches())
+    out = ops.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    # the backward ran on autograd's device thread, credited to this one
+    assert (flash_attention.flash_attention.launches,
+            flash_attention.flash_attention_bwd.launches,
+            flash_attention.thread_launches(),
+            flash_attention.thread_bwd_launches()) == tuple(n + 1 for n in before)
+    assert all(g.shape == t.shape and bool(g.float().isfinite().all())
+               for g, t in zip(grads, (q, k, v)))
+
+
+@pytest.mark.parametrize("mb", [1, 2])
+def test_long_s_train_step_on_card_remat_is_bitwise(deterministic, mb):
+    """A bf16 model at S = 128 above its chunked threshold of 64: every
+    layer's attention and its gradient run the kernels, and the step's
+    state is the same bits under remat none, dots and full. Every launch,
+    the ones remat recomputes on autograd's thread included, counts for
+    this thread: per microbatch L backward calls and L forward launches,
+    2 L under dots and full."""
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_step
+
+    cuda = deterministic
+    cfg = ModelConfig(
+        name="t", family="dense", num_layers=2, d_model=128, vocab_size=256,
+        num_heads=4, num_kv_heads=2, head_dim=32, d_ff=256, qkv_bias=True,
+        attn_chunked_threshold=64, attn_block_q=32, attn_block_k=32,
+        param_dtype="bfloat16", compute_dtype="bfloat16",
+    )
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, 256, (4, 129), generator=g, device=cuda, dtype=torch.int32)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    states = []
+    for remat in ("none", "dots", "full"):
+        model = build(cfg.with_overrides(remat=remat))
+        opt = adamw(1e-3)
+        params = model.init(torch.Generator(device=cuda).manual_seed(1))
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+        counters = (lambda: (flash_attention.flash_attention.launches,
+                             flash_attention.flash_attention_bwd.launches,
+                             flash_attention.thread_launches(),
+                             flash_attention.thread_bwd_launches()))
+        before = counters()
+        state, metrics = make_train_step(model, opt, microbatches=mb)(state, batch)
+        fwd = (1 if remat == "none" else 2) * mb * cfg.num_layers
+        bwd = mb * cfg.num_layers
+        assert tuple(n - b for n, b in zip(counters(), before)) == (fwd, bwd, fwd, bwd)
+        assert bool(torch.isfinite(metrics["loss"]))
+        states.append(state)
+    assert tree_equal(states[0], states[1]) and tree_equal(states[0], states[2])
 
 
 def test_serve_on_card_lazy_equals_eager(deterministic, tmp_path):
