@@ -26,14 +26,19 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    to bf16, which is why the kernel splits P in two); ``[flash-bwd-sweep]``:
    the forward's row statistics m and l against
    ``flash_attention_plain(return_stats=True)`` (and its output with them
-   bitwise the one without), and the backward kernels (dq, then dk and dv;
-   tensor cores for bf16/f16, CUDA cores for f32) on the forward kernel's
-   output and statistics against ``flash_attention_bwd_plain`` on the plain
-   forward's, over the same kinds of shapes, causal and not, groups of 1
-   and 7, rows with no key (m -1e30, dq exactly 0), head dims 32/64/128,
-   the model's transposed v and the training shape (run to run bitwise),
-   with stated tolerances that must read a dk missing one head of the
-   group, a dq missing one key tile and m in log base 2 more than 10x over;
+   bitwise the one without), and the backward kernels (tensor cores for
+   bf16/f16: dq, dk and dv per q head, the sum over each group; CUDA cores
+   for f32: dq, then dk and dv) on the forward kernel's output and
+   statistics against ``flash_attention_bwd_plain`` on the plain forward's,
+   over the same kinds of shapes, causal and not, groups of 1, 4, 7 and
+   12, rows with no key (m -1e30, dq exactly 0), head dims 32/64/128, the
+   model's transposed v and the training shape (run to run bitwise), with
+   stated tolerances that must read a dk missing one head of the group, a
+   dq missing one key tile and m in log base 2 more than 10x over, and a
+   limit scaled per 64-row tile that must hold everywhere and read the
+   last rows' dq without a key tile, and the last key tile's dk without
+   one head's partial, over it; ``[build]`` prints each backward kernel's
+   registers and spills (``-Xptxas -v``) and fails on a spill;
 3. the training path through ``repro_torch.launch.train``: qwen2-0.5b at full
    width and depth, batch 4, seq 512, 6 steps, a checkpoint every 2 steps
    with the fork persist backend. The codec is ``none`` by default, not the
@@ -87,7 +92,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    as configured, 4 steps, fork checkpoints at 2 and 4, codec none: per
    step its ms, peak card memory and exactly 48 forward launches (24, and
    24 that remat recomputes in the backward), 24 backward calls (each
-   launching its two kernels) and no digest launch, all of them counted
+   launching its three kernels) and no digest launch, all of them counted
    for the step's thread too; no digest launch at either sync (each its
    buffer's first); the step-4 image's chunk digests those of the run's
    state, and the step-2 image run to step 4 bitwise equal to that state;
@@ -97,11 +102,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    mb=1's in bf16 and, with the weights upcast, in f32, the step within
    the limits of mb=1's (loss, grad norm, updated params) and two mb=2
    steps bitwise equal.
-   ``[timing] flash-bwd``: the backward at one layer of that shape, its
-   bound (five products), its plain version and the library's fused
-   attention backward (forward + backward minus forward, with and without
+   ``[timing] flash-bwd``: the backward at one layer of that shape, each
+   of its kernels' device time (the profiler must trace each once a call,
+   and gives the row's ``kernels_per_launch``), its scratch, its bound
+   (five products), its plain version and the library's fused attention
+   backward (forward + backward minus forward, with and without
    deterministic algorithms), the ``flash_attention_bwd`` row of the JSON;
-7. the proxy path (``[proxy]``): qwen2-0.5b at full width and 4 of its
+7. the proxy path (``[proxy]``): qwen2-0.5b at full width and 2 of its
    24 layers (a cut for the script's time), batch 4, seq 512, 6 steps, a
    checkpoint every 2 steps, fork backend,
    codec ``none``, 1 MiB chunks, the segment transport and fused digests,
@@ -237,6 +244,17 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7),
 # product in f32: the forward's 2e-5, of the largest element
 FLASH_BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -7),
                  torch.float16: (2.0 ** -10, 2.0 ** -10)}
+# the same limit with max|want| taken per tile of 64 rows (keys, for dk and
+# dv) of each (batch, head), so that a tile whose gradient is small is held
+# to its own scale: the whole-tensor limit misses a key tile dropped from
+# the last rows' dq, and one q head's partial missing from the last 128
+# keys' dk (the dk/dv kernel's smallest CTAs). Set from the kernel's
+# readings: every shape of the sweep and the training shape reads below 1
+FLASH_BWD_TILE_ROWS, FLASH_BWD_TILE_LIMIT = 64, 1.0
+# the kernels one backward call launches on its 16-bit route, in order, by
+# the names [timing] flash-bwd prints them under
+BWD_KERNELS = {"dq": "flash_bwd_dq_tc", "dkdv": "flash_bwd_dkdv_tc",
+               "reduce": "flash_bwd_reduce_dkdv"}
 # the forward's row statistics vs the plain version's, every dtype (both
 # are f32 over the same products): |dm| <= 1e-4 (1 + |m|), |dl| <= 1e-4 l.
 # Two tilings of up to 8192 keys order their f32 sums and rescalings
@@ -272,6 +290,16 @@ def phase_card() -> str:
         libs = list(pool.map(lambda build: build(), builds))
     print(f"[build] {' '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    from repro_torch.kernels import _build
+
+    report = [r for r in _build.ptxas_report(libs[2]) if r["kernel"].endswith(("_tc", "_dkdv"))
+              and r["dtype"] is not None]
+    print("[build] backward, 16-bit route, -Xptxas -v: " + " ".join(
+        f"{r['kernel']}<{r['dtype']},{r['d']}>:regs={r['registers']},"
+        f"spill={r['spill_stores']}/{r['spill_loads']}" for r in report), flush=True)
+    if len(report) != 14 or any(r["spill_stores"] or r["spill_loads"] for r in report):
+        raise SystemExit(f"the backward's 16-bit kernels: {len(report)} of 14 reported, or "
+                         f"a spill: {report}")
     return smi
 
 
@@ -518,6 +546,26 @@ def _bwd_tol_ratio(got: torch.Tensor, want: torch.Tensor, scale: float | None = 
     return float(((got.float() - want).abs() / (a * top + r * want.abs())).max())
 
 
+def _bwd_tile_ratio(got: torch.Tensor, want: torch.Tensor,
+                    rows: int = FLASH_BWD_TILE_ROWS) -> float:
+    """max |got - want| / (a max|want over its tile| + r |want|), tiles of
+    ``rows`` rows of each (batch, head) (``FLASH_BWD_TOL``'s a and r); an
+    element with no error reads 0, one with an error where its tile is all
+    0 reads inf."""
+    a, r = FLASH_BWD_TOL[want.dtype]
+    B, H, S, D = want.shape
+    n = -(-S // rows)
+
+    def tiles(x):
+        return torch.nn.functional.pad(x.float(), (0, 0, 0, n * rows - S)).view(B, H, n, rows, D)
+
+    w = tiles(want)
+    top = w.abs().amax(dim=(3, 4), keepdim=True)
+    err = (tiles(got) - w).abs()
+    ratio = torch.where(err == 0, 0.0, err / (a * top + r * w.abs()))
+    return float(ratio.max())
+
+
 def _flash_bwd_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, causal=True):
     """The kernel forward's output and statistics on ``_flash_inputs``, and
     a dO: what a backward gets."""
@@ -580,14 +628,19 @@ def phase_flash_bwd_sweep() -> None:
         (1, 4, 4, 128, 512, 64), (2, 2, 2, 384, 384, 32),   # the forward sweep's
         (1, 2, 1, 256, 128, 64), (1, 7, 1, 200, 72, 32),    # Sq > Sk: rows with no key
         (1, 14, 2, 200, 200, 64), (1, 14, 2, 120, 200, 128),  # group of 7, ragged tiles
+        (1, 8, 2, 333, 200, 128), (1, 12, 1, 300, 200, 64),   # groups of 4 and 12, Sq > Sk
     ]
     worst, stats_worst, cases, nokey_dq, nokey_m, stats_same = {}, 0.0, 0, 0.0, True, True
+    tile_worst = {}
     for dtype in FLASH_BWD_TOL:
         for shape in shapes:
             for causal in (True, False):
                 ins = _flash_bwd_inputs(*shape, dtype, gen, causal=causal)
-                ratio, _, st_ratio, same_out, got, _, _ = _flash_bwd_vs_plain(ins, causal=causal)
+                ratio, _, st_ratio, same_out, got, want, _ = _flash_bwd_vs_plain(ins,
+                                                                                 causal=causal)
                 worst[dtype] = max(worst.get(dtype, 0.0), ratio)
+                tile_worst[dtype] = max(tile_worst.get(dtype, 0.0), *(
+                    _bwd_tile_ratio(g, w) for g, w in zip(got, want)))
                 stats_worst = max(stats_worst, st_ratio)
                 stats_same = stats_same and same_out
                 cases += 1
@@ -601,13 +654,17 @@ def phase_flash_bwd_sweep() -> None:
         _flash_bwd_vs_plain(ins, blocks=(1024, 1024))
     stats_same = stats_same and same_out
     cases += 1
+    train_tile = max(_bwd_tile_ratio(g, w) for g, w in zip(got, want))
     same = all(torch.equal(a, b) for a, b in zip(got, flash_attention.flash_attention_bwd(*ins)))
     # what the tolerance reads for a wrong kernel: (1) dk without the first
     # q head of each kv head's group of 7; (2) 128 rows' dq without their
     # first key tile (64 keys, which every one of them sees): rows 64..191,
     # gated, and the last 128 rows (the longest, whose dq is far below the
-    # tensor's largest element), printed only; (3) the statistics with m in
-    # log base 2, gated
+    # tensor's largest element), which the whole-tensor limit misses and the
+    # per-tile limit must see; (3) the statistics with m in log base 2,
+    # gated; (4) the last key tile's dk (128 keys, which only the last 128
+    # rows see) without the partial of q head 0, which the per-tile limit
+    # must see
     q, k, v, _, m, _, do = ins
     o, pm, pl = plain_fwd
     heads = [0, 7]  # the first q head of each kv head
@@ -623,12 +680,22 @@ def phase_flash_bwd_sweep() -> None:
             q[:, :, rows], k[:, :, :64], v[:, :, :64], o[:, :, rows],
             pm[:, :, rows].contiguous(), pl[:, :, rows].contiguous(), do[:, :, rows],
             causal=False, block_q=T, block_k=64)
-        return _bwd_tol_ratio(want[0][:, :, rows].float() - tile[0].float(),
-                              want[0][:, :, rows], scale=top)
+        wrong = want[0][:, :, rows].float() - tile[0].float()
+        return (_bwd_tol_ratio(wrong, want[0][:, :, rows], scale=top),
+                _bwd_tile_ratio(wrong, want[0][:, :, rows]))
 
-    tile_ratio, last_ratio = without_first_tile(64), without_first_tile(LONG_SEQ - T)
+    (tile_ratio, _), (last_ratio, last_tile) = without_first_tile(64), \
+        without_first_tile(LONG_SEQ - T)
+    last = slice(LONG_SEQ - T, LONG_SEQ)
+    head0 = ref.flash_attention_bwd_plain(
+        q[:, :1, last], k[:, :1, last], v[:, :1, last], o[:, :1, last],
+        pm[:, :1, last].contiguous(), pl[:, :1, last].contiguous(), do[:, :1, last],
+        block_q=T, block_k=T)
+    no_head0 = want[1].float().clone()
+    no_head0[:, :1, last] -= head0[1].float()
+    part_whole, part_tile = _bwd_tol_ratio(no_head0, want[1]), _bwd_tile_ratio(no_head0, want[1])
     log2_ratio = _stats_ratio(m / math.log(2), ins[5], pm, pl)
-    del ins, q, k, v, o, m, pm, pl, do, got, want, part, plain_fwd
+    del ins, q, k, v, o, m, pm, pl, do, got, want, part, plain_fwd, head0, no_head0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     routes = {r: n - before[r] for r, n in bwd.launches_by_route.items()}
@@ -642,7 +709,12 @@ def phase_flash_bwd_sweep() -> None:
         f"(max_abs_err={train_err:.3g}) run_to_run_equal={same}: one head of the group "
         f"missing from dk reads {head_ratio:.3g}x the limit, one key tile missing from "
         f"rows 64..191's dS reads {tile_ratio:.3g}x (from the last {T} rows' "
-        f"{last_ratio:.3g}x), m in log base 2 reads {log2_ratio:.3g}x", flush=True)
+        f"{last_ratio:.3g}x), m in log base 2 reads {log2_ratio:.3g}x; per "
+        f"{FLASH_BWD_TILE_ROWS}-row tile (limit {FLASH_BWD_TILE_LIMIT:g}): " + " ".join(
+            f"{str(d).replace('torch.', '')}_worst={e:.3g}x" for d, e in tile_worst.items())
+        + f" train_shape={train_tile:.3g}x; the last {T} rows' dS without a key tile reads "
+        f"{last_tile:.3g}x, the last key tile's dk without q head 0's partial "
+        f"{part_tile:.3g}x (whole-tensor limit: {part_whole:.3g}x)", flush=True)
     if max(max(worst.values()), train_ratio) > 1:
         raise SystemExit(f"flash_attention_bwd outside its tolerance: {worst} "
                          f"train shape {train_ratio}")
@@ -655,6 +727,12 @@ def phase_flash_bwd_sweep() -> None:
     if min(head_ratio, tile_ratio, log2_ratio) <= 10:
         raise SystemExit("the bf16 backward or statistics tolerance does not see a missing "
                          "head, a missing key tile or m in log base 2 by a wide factor")
+    if max(*tile_worst.values(), train_tile) > FLASH_BWD_TILE_LIMIT:
+        raise SystemExit(f"flash_attention_bwd outside its per-tile limit: {tile_worst}, "
+                         f"train shape {train_tile}")
+    if min(last_tile, part_tile) <= FLASH_BWD_TILE_LIMIT:
+        raise SystemExit(f"the per-tile limit does not see the last rows' missing key tile "
+                         f"({last_tile}) or the last key tile's missing head ({part_tile})")
 
 
 def _zero_counts() -> None:
@@ -1166,13 +1244,19 @@ def phase_flash_bwd_timing(train_long_launches: int) -> dict:
     kernel = flash_attention.flash_attention_bwd
     ratio, err = _flash_bwd_vs_plain(ins, blocks=(512, 1024))[:2]  # warm-up too
     ms = _time_ms(lambda: kernel(*ins), 10)
-    # each of the two kernels' device time, from the profiler's trace
+    scratch = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size() for shape, dt in
+                  flash_attention.bwd_scratch(torch.bfloat16, B, Hq, Hkv, S, S, D).values())
+    # the kernels each call launches and each one's device time, from the
+    # profiler's trace of a few calls
+    calls = 3
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
+        for _ in range(calls):
             kernel(*ins)
         torch.cuda.synchronize()
-    split = {name: e.device_time_total / e.count / 1e3 for e in prof.key_averages()
-             for name in ("dq", "dkdv") if f"flash_bwd_{name}_" in e.key and e.count}
+    traced = [e for e in prof.key_averages() if "flash_bwd_" in e.key and e.count]
+    split = {name: e.device_time_total / e.count / 1e3 for e in traced
+             for name, full in BWD_KERNELS.items() if full in e.key}
+    per_call = sum(e.count for e in traced) / calls
     plain_ms = _time_ms(lambda: ref.flash_attention_bwd_plain(*ins, block_q=512,
                                                               block_k=1024), 2)
     q, k, v, _, _, _, do = ins
@@ -1212,7 +1296,7 @@ def phase_flash_bwd_timing(train_long_launches: int) -> dict:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "none: the reference differentiates src/repro/models/layers.py:136 "
                     "(_chunked_attention) in plain JAX; no Pallas backward",
-        "launches": train_long_launches, "kernels_per_launch": 2,  # dq, then dk and dv
+        "launches": train_long_launches, "kernels_per_launch": int(per_call),  # checked below
         "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -1222,16 +1306,24 @@ def phase_flash_bwd_timing(train_long_launches: int) -> dict:
     lib = " ".join(f"{'deterministic' if d else 'not'}="
                    f"{x if isinstance(x, str) else format(x, '.4f')}"
                    for d, x in library.items())
+    factor = " ".join(f"{'deterministic' if d else 'not'}={ms / x:.3f}"
+                      for d, x in library.items() if isinstance(x, float))
     print(f"[timing] flash-bwd q={(B, Hq, S, D)} k=v={(B, Hkv, S, D)} bf16 causal "
-          f"kernel_ms={ms:.4f} (two launches: dq, then dk and dv; profiler per launch: "
-          f"{' '.join(f'{k}={v:.4f}' for k, v in split.items()) or 'not measured'}) "
-          f"plain_ms={plain_ms:.1f} "
+          f"kernel_ms={ms:.4f} (profiler: {per_call:g} kernels a call, per kernel "
+          f"{' '.join(f'{k}={v:.4f}' for k, v in split.items()) or 'none traced'}; "
+          f"scratch_bytes={scratch}) plain_ms={plain_ms:.1f} "
           f"library_ms={library_ms if library_ms is None else format(library_ms, '.4f')} "
-          f"({lib}) bound_ms={row['bound_ms']:.4f} bound/kernel={row['bound_ms'] / ms:.3f} "
+          f"({lib}; kernel/library {factor}) bound_ms={row['bound_ms']:.4f} "
+          f"bound/kernel={row['bound_ms'] / ms:.3f} "
           f"TFLOP/s={flops / ms / 1e9:.1f} max_abs_err={err:.3g} ({ratio:.3g}x the bf16 "
           f"limit)", flush=True)
     if not ratio <= 1:
         raise SystemExit(f"flash_attention_bwd disagrees with plain at the train shape: {err}")
+    if (per_call != len(BWD_KERNELS) or len(traced) != len(BWD_KERNELS)
+            or len(split) != len(BWD_KERNELS) or not all(t > 0 for t in split.values())):
+        raise SystemExit(f"the profiler did not trace each of {list(BWD_KERNELS.values())} "
+                         f"once a call, with its device time: {per_call:g} a call, "
+                         f"{[e.key[:80] for e in traced]}")
     return row
 
 
@@ -1525,7 +1617,7 @@ def phase_train_long(card: str) -> dict:
 # (PERF.md §4)
 UVM_SPEC = {"name": "train_arch", "arch": ARCH, "smoke": False, "batch": BATCH,
             "seq": SEQ, "lr": LR, "total_steps": STEPS, "device": "cuda"}
-PROXY_LAYERS, PAGED_LAYERS = 4, 2
+PROXY_LAYERS, PAGED_LAYERS = 2, 2
 PROXY_SPEC = dict(UVM_SPEC, num_layers=PROXY_LAYERS)
 PAGED_SPEC = dict(UVM_SPEC, num_layers=PAGED_LAYERS)
 PROXY_CHUNK = 1 << 20

@@ -1,6 +1,6 @@
 // Backward of causal GQA flash attention for Hopper (sm_90a): dq, dk and dv
 // of flash_attention.cu's forward. bf16 and f16 on the tensor cores
-// (mma.sync), f32 on the CUDA cores.
+// (wgmma), f32 on the CUDA cores.
 //
 // Replaces no TPU kernel: the reference has no Pallas backward and trains at
 // S >= attn_chunked_threshold by differentiating its pure-JAX
@@ -36,37 +36,61 @@
 // 989 TFLOP/s dense bf16 rate; its 136 MB of inputs and outputs take 0.041
 // ms at 3.35 TB/s.
 //
-// Design: two kernels, so that no float is ever added atomically and the
-// result is the same bits from run to run (training restarts bit for bit).
-//   1. flash_bwd_dq: one CTA per (q tile, q head, batch), q tiles longest
-//      first. It computes Delta for its rows (kept in a (B, Hq, Sq) f32
-//      scratch for kernel 2), then walks the key tiles that its rows may
-//      see, recomputes s, P and dP, and accumulates dq over them in order.
-//   2. flash_bwd_dkdv: one CTA per (key tile, kv head, batch). It walks the
-//      group's q heads in order and, per head, the q tiles that weigh its
-//      keys (causally admitted rows, and the rows with no key, which weigh
-//      every key), recomputes s^T, P^T and dP^T, and accumulates dk and dv
-//      over them in that fixed order. The sum over the group's heads, where
-//      an atomic version would drift from run to run, is a loop.
-//   Kernel 2 runs after kernel 1 on the same stream and reads its Delta.
-//   Both recompute s and dP, so the design does 7 products where 5 would
-//   do: its own floor is 0.85 ms at the training shape.
+// Design: no float is ever added atomically, and every sum runs in a fixed
+// order, so the result is the same bits from run to run (training restarts
+// bit for bit).
 //
-// bf16 / f16 (flash_bwd_*_mma): 4 warps, 16 rows (kernel 1) or 16 keys
-// (kernel 2) each; tiles of 64 rows and 64 keys (32 rows in kernel 2 at D =
-// 128, for registers). Tiles go from global memory to shared memory with
-// 16-byte loads (rows past Sq or Sk as zeros), row pitch D + 8 elements so
-// fragment loads spread over the banks. Every product is mma.sync
-// m16n8k16 with f32 accumulators; an operand whose contraction dim is not
-// contiguous in shared memory (k in dS k, q in dS^T q and dO in P^T dO) is
-// gathered two 16-bit values at a time. P and dS go from the f32 fragments
-// of one product to the A fragments of the next, rounded once to the input
-// type, never through shared memory. exp is ex2 of the logit in the log2
-// domain, as in the forward.
+// bf16 / f16: three launches on one stream, in order.
+//   1. flash_bwd_dq_tc: one CTA (one warpgroup, 128 threads) per (q head,
+//      batch, 64-row q tile), the tiles longest first (grid z, the slowest
+//      dimension, so every head's long causal rows start before any short
+//      ones). It computes Delta, m in the log2 domain and 1 / l for its
+//      rows into a (3, B, Hq, Sq rounded up to 4) f32 scratch that kernel 2
+//      reads, then walks the 64-key tiles that its rows may see, recomputes
+//      s, P and dP, and accumulates dq over them in order.
+//   2. flash_bwd_dkdv_tc: one CTA (one warpgroup) per (q head, batch,
+//      64-key tile), the key tiles that the most rows weigh first. It walks
+//      the q tiles that weigh its keys (causally admitted rows, and the rows
+//      with no key, which weigh every key) in order, recomputes s^T, P^T and
+//      dP^T, and accumulates this head's dk and dv; it writes them unscaled
+//      as f32 partials to a (B, Hq, Sk, D) scratch each. One CTA per q head,
+//      not per kv head, so no CTA walks the whole group: at the training
+//      shape the heaviest walks 128 q tiles where one CTA per kv
+//      head walked 896.
+//   3. flash_bwd_reduce_dkdv: for each kv head, sums the group's partials
+//      in head order (hk * group, ..., hk * group + group - 1), scales dk,
+//      and rounds each once to the input type (reads 2 x 58.7 MB, writes
+//      2 x 4.2 MB at the training shape).
+//   Products: wgmma, f32 accumulators, as in the forward. q k^T and dO v^T
+//   (kernel 2: k q^T and v dO^T) read both operands from shared memory;
+//   dS k (kernel 2: P^T dO and dS^T q) takes P or dS from registers (the
+//   accumulator fragment of one product is the A fragment of the next,
+//   rounded once to the input type) and k, dO or q from shared memory in
+//   the descriptor's transpose mode, so no operand is copied transposed.
+//   Kernel 2's q tiles hold 64 rows (32 at D = 128, for registers).
+//   Loads: cp.async, 16 bytes a thread, into the 128-byte swizzle wgmma
+//   reads (64-byte at D = 32), in a ring of three stages: while a tile is
+//   computed the next two are in flight (kernel 1: k and v of the next key
+//   tiles; kernel 2: q, dO and the rows' statistics of the next admitted q
+//   tiles), and one __syncthreads a tile both publishes a tile and frees
+//   the stage refilled next. Rows past Sq or Sk arrive as zeros.
+//   Latency: a warpgroup runs its tile's products, waits, then its softmax
+//   gradient, so three CTAs share an SM (registers capped at 170 a thread;
+//   D = 128: one CTA of kernel 1, two of kernel 2) and one's products run
+//   beside another's softmax. Inside the causal triangle (every row in the
+//   tensor and seeing every key) the softmax gradient is a loop of its own
+//   without a test or a branch; on the diagonal and at ragged edges each
+//   pair is tested. exp is ex2 of the logit in the log2 domain, as in the
+//   forward.
+//   Kernel 1 recomputes s and dP that kernel 2 computes too, so the design
+//   does 7 products where 5 would do: its own floor is 0.85 ms at the
+//   training shape.
 //
-// f32 (flash_bwd_*_simt): the same two kernels on the CUDA cores (mma has no
-// f32 inputs; TF32 would not meet the f32 limit), 256 threads, 32-row and
-// 32-key tiles in shared memory, P and dS through shared memory, expf.
+// f32 (flash_bwd_*_simt): two kernels on the CUDA cores (mma has no f32
+// inputs; TF32 would not meet the f32 limit), 256 threads, 32-row and 32-key
+// tiles in shared memory, P and dS through shared memory, expf. dq and Delta
+// per q tile, then dk and dv per (key tile, kv head), the group's heads
+// summed in a loop.
 //
 // Strides: q, k, v, o and dO are read through their (b, h, s) element
 // strides with unit stride in D (the model's transposed v view needs no
@@ -75,8 +99,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -91,16 +115,20 @@ struct Params {
   const void* dout;
   const float* m;  // (b, hq, sq) row max, natural-log domain
   const float* l;  // (b, hq, sq) softmax denominator
-  float* delta;    // (b, hq, sq) scratch: rowsum(dO * O), written by kernel 1
+  // scratch written by kernel 1: f32 route (b, hq, sq) Delta; 16-bit route
+  // (3, b, hq, sq_pad) m in the log2 domain (-1e30 kept), 1 / l, Delta
+  float* delta;
   void* dq;        // (b, hq, sq, d) contiguous
   void* dk;        // (b, hkv, sk, d) contiguous
   void* dv;
+  float* dk_part;  // 16-bit route: (b, hq, sk, d) f32 per-q-head partials
+  float* dv_part;
   int64_t q_sb, q_sh, q_ss;  // element strides of (b, h, s); d stride is 1
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
   int64_t o_sb, o_sh, o_ss;
   int64_t do_sb, do_sh, do_ss;
-  int hq, hkv, sq, sk, group;
+  int batch, hq, hkv, sq, sk, d, group, sq_pad;
   float scale;
   int causal;
 };
@@ -148,11 +176,26 @@ __device__ __forceinline__ bool q_tile_weighs(const Params& p, int q0, int bq, i
   return last_row + offset >= k0 || q0 + offset < 0;
 }
 
+// The first q tile of `bq` rows from tile `iq` on that weighs a key of
+// [k0, ...), or `nq` if none does.
+__device__ __forceinline__ int next_q_tile(const Params& p, int iq, int nq, int bq, int k0) {
+  while (iq < nq && !q_tile_weighs(p, iq * bq, bq, k0)) {
+    ++iq;
+  }
+  return iq;
+}
+
 // ---------------------------------------------------------------------------
-// bf16 / f16: tensor cores (mma.sync m16n8k16, f32 accumulate)
+// bf16 / f16: tensor cores (wgmma, f32 accumulate)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kMmaThreads = 128;  // one warpgroup
+constexpr int kTile = 64;         // rows of a kernel-1 CTA, keys of a kernel-2 CTA
+constexpr int kStages = 3;        // cp.async ring: the tile in use and the next two in flight
+constexpr int kDqBk = 64;         // keys per tile of kernel 1
+template <int D>
+constexpr int kDkdvBq = D == 128 ? 32 : 64;  // q rows per tile of kernel 2 (registers)
+constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -160,23 +203,29 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// D (16 x 8, f32) += A (16 x 16, row) . B (16 x 8, col)
-template <typename T>
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from global to shared memory, asynchronously; with src_bytes 0
+// nothing is read and the 16 bytes are zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight,
+// then hand what arrived to the async proxy that wgmma reads through (the
+// caller's __syncthreads then makes every thread's copies visible).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Two f32 values as one register of two 16-bit values (x0 in the low half),
@@ -190,77 +239,327 @@ __device__ __forceinline__ uint32_t pack2(__half*, float x0, float x1) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Shared-memory tile of 16-bit values, rows of `kLd` elements.
-template <typename T, int kLd>
-struct Tile {
-  T* base;
-  // elements (row, col) and (row, col + 1): the contraction dim is the row
-  __device__ __forceinline__ uint32_t pair(int row, int col) const {
-    return *reinterpret_cast<const uint32_t*>(base + row * kLd + col);
-  }
-  // elements (row, col) and (row + 1, col): the contraction dim is the column
-  __device__ __forceinline__ uint32_t pair_down(int row, int col) const {
-    const uint16_t* raw = reinterpret_cast<const uint16_t*>(base);
-    return static_cast<uint32_t>(raw[row * kLd + col]) |
-           (static_cast<uint32_t>(raw[(row + 1) * kLd + col]) << 16);
-  }
-  // A fragment of rows r0..r0+15, columns c0..c0+15
-  __device__ __forceinline__ void a_frag(uint32_t (&a)[4], int r0, int c0, int lane) const {
-    const int g = lane >> 2;
-    const int t = 2 * (lane & 3);
-    a[0] = pair(r0 + g, c0 + t);
-    a[1] = pair(r0 + g + 8, c0 + t);
-    a[2] = pair(r0 + g, c0 + t + 8);
-    a[3] = pair(r0 + g + 8, c0 + t + 8);
+// The shared-memory layout wgmma reads: a tile of `rows` rows of D 16-bit
+// values as panels of 64 columns (D = 32: one of 32), each panel's rows of
+// 128 (64) bytes with the 128-byte (64-byte) swizzle: 16-byte chunk c of
+// row r lies at chunk c ^ (r % 8) (c ^ (r / 2 % 4)). Tiles start on
+// 1024-byte boundaries.
+template <int D>
+struct Swz {
+  static constexpr int kPanel = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kPanel * 2;
+  static constexpr int kChunks = kRowBytes / 16;
+  static constexpr int kSwizzle = kRowBytes == 128 ? 1 : 2;  // the descriptor's mode
+  static constexpr uint32_t kSbo = 8 * kRowBytes;            // 8-row core matrices
+  // byte offset of 16-byte chunk c (of D / 8) of row r
+  static __device__ __forceinline__ uint32_t at(int r, int c, int rows) {
+    const int sw = kRowBytes == 128 ? (r & 7) : ((r >> 1) & 3);
+    return static_cast<uint32_t>((c / kChunks) * rows * kRowBytes + r * kRowBytes +
+                                 (((c % kChunks) ^ sw) << 4));
   }
 };
 
-// Rows [row0, row0 + rows) of a (s, d) operand with row stride `ss` into a
-// shared tile, rows at or past `n` as zeros; 16-byte loads (the wrapper
-// checks the alignment).
-template <typename T, int D, int kLd>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ss, int row0, int rows,
-                                          int n) {
-  constexpr int kVecs = D / 8;
-  for (int e = threadIdx.x; e < rows * kVecs; e += blockDim.x) {
-    const int r = e / kVecs;
-    const int c = (e % kVecs) * 8;
-    const int row = row0 + r;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n) {
-      x = *reinterpret_cast<const uint4*>(src + row * ss + c);
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+
+// An operand whose contraction dim runs along the tile's rows (K-major):
+// rows r0.. of a tile of `rows` rows, at k16 step kk.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0, int kk) {
+  using S = Swz<D>;
+  const uint32_t panel = kk * 16 / S::kPanel;
+  const uint32_t col = (kk * 16 % S::kPanel) * 2;
+  return smem_desc(tile + panel * rows * S::kRowBytes + r0 * S::kRowBytes + col, 16, S::kSbo,
+                   S::kSwizzle);
+}
+
+// A B operand whose contraction dim runs down the tile's rows (the
+// transpose mode): rows 16 kk..16 kk + 15 of a tile of `rows` rows.
+template <int D>
+__device__ __forceinline__ uint64_t desc_t(uint32_t tile, int rows, int kk) {
+  using S = Swz<D>;
+  return smem_desc(tile + kk * 16 * S::kRowBytes, rows * S::kRowBytes, S::kSbo, S::kSwizzle);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // until at most N committed groups are still running
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers that an asynchronous wgmma reads or writes, so the compiler
+// moves no access to them across the fence / wait around it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// C (64 x N per warpgroup) = (scale_d ? C : 0) + A (64 x 16) . B (N x 16)^T,
+// both K-major in shared memory.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+// C (64 x N per warpgroup) += A (64 x 16, registers) . B (16 x N, shared,
+// N contiguous: the transpose mode).
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<__nv_bfloat16, 32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<__nv_bfloat16, 64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<__half, 32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<__half, 64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<__half, 32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<__half, 64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<__half, 128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The A fragments (one per k16 step) of a warpgroup's f32 accumulator of N
+// columns: element 4 j + 2 i + c of the accumulator is row r + 8 i, column
+// 8 j + 2 (lane % 4) + c, and k16 step kk takes elements 8 kk..8 kk + 7 in
+// pairs, rounded once to T.
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[kk][r] = pack2(static_cast<T*>(nullptr), acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
     }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = x;
+  }
+}
+
+// Rows [row0, row0 + kRows) of a (s, d) operand with row stride `ss` into a
+// swizzled shared tile at `dst`, asynchronously; rows at or past `n` as
+// zeros (the wrapper checks that 16-byte copies can read the rows).
+template <typename T, int D, int kRows>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const T* src, int64_t ss, int row0,
+                                                int n) {
+  constexpr int kVecs = D / 8;
+  constexpr int kPer = (kRows * kVecs + kMmaThreads - 1) / kMmaThreads;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = static_cast<int>(threadIdx.x) + i * kMmaThreads;
+    if (e < kRows * kVecs) {
+      const int r = e / kVecs;
+      const int c = e % kVecs;
+      const bool in = row0 + r < n;
+      cp_async16(dst + Swz<D>::at(r, c, kRows), src + (in ? row0 + r : 0) * ss + c * 8,
+                 in ? 16 : 0);
+    }
+  }
+}
+
+// One q tile's row statistics (m log2, 1 / l, Delta; kBq each) from the
+// (3, b, hq, sq_pad) scratch, asynchronously; rows past sq_pad as zeros.
+template <int kBq>
+__device__ __forceinline__ void load_stats_async(uint32_t dst, const float* rows, int64_t plane,
+                                                 int q0, int sq_pad) {
+  constexpr int kVecs = kBq / 4;
+  const int e = static_cast<int>(threadIdx.x);
+  if (e < 3 * kVecs) {
+    const int i = (e % kVecs) * 4;
+    const bool in = q0 + i < sq_pad;
+    cp_async16(dst + ((e / kVecs) * kBq + i) * 4, rows + (e / kVecs) * plane + (in ? q0 + i : 0),
+               in ? 16 : 0);
   }
 }
 
 template <int D>
-constexpr size_t dq_mma_smem(int itemsize) {
-  return static_cast<size_t>(4 * 64 * (D + 8)) * itemsize;
+constexpr size_t dq_tc_smem() {
+  // q and dO (kTile rows), k and v (kDqBk rows, kStages each), 3 x kTile
+  // statistics, and the room to align the tiles to 1024 bytes
+  return 1024 + static_cast<size_t>(2 * kTile + 2 * kStages * kDqBk) * D * 2 +
+         3 * sizeof(float) * kTile;
 }
 
-// Kernel 1, tensor cores: Delta and dq of one 64-row q tile.
+// Kernel 1, tensor cores: Delta, the rows' statistics and dq of one 64-row
+// q tile. Three CTAs share an SM at D = 32 and 64, one at D = 128.
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(const Params p) {
-  constexpr int kBq = 64;
-  constexpr int kBk = 64;
-  constexpr int kLd = D + 8;
-  extern __shared__ uint4 smem_dq[];
-  T* qs = reinterpret_cast<T*>(smem_dq);
-  T* dos = qs + kBq * kLd;
-  T* ks = dos + kBq * kLd;
-  T* vs = ks + kBk * kLd;
-  const Tile<T, kLd> tq{qs}, tdo{dos}, tk{ks}, tv{vs};
+__global__ void __launch_bounds__(kMmaThreads, D == 128 ? 1 : 3) flash_bwd_dq_tc(const Params p) {
+  using S = Swz<D>;
+  constexpr int kBq = kTile;
+  constexpr int kBk = kDqBk;
+  constexpr uint32_t kQBytes = kBq * D * 2;
+  constexpr uint32_t kKBytes = kBk * D * 2;
+  extern __shared__ uint8_t smem_dq[];
+  const uint32_t raw = smem_u32(smem_dq);
+  const uint32_t q_s = (raw + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + kQBytes;
+  const uint32_t k_s = do_s + kQBytes;             // kStages tiles
+  const uint32_t v_s = k_s + kStages * kKBytes;    // kStages tiles
+  float* m2s = reinterpret_cast<float*>(smem_dq + (v_s + kStages * kKBytes - raw));
+  float* ils = m2s + kBq;
+  float* dls = ils + kBq;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t = 2 * (lane & 3);
+  const int col0 = 2 * (lane % 4);
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int nq = (p.sq + kBq - 1) / kBq;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kBq;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.z)) * kBq;  // longest first
   const int hk = h / p.group;
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -270,282 +569,400 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(const Params p) 
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const int64_t stat0 = (static_cast<int64_t>(b) * p.hq + h) * p.sq;
 
-  load_rows<T, D, kLd>(qs, q, p.q_ss, q0, kBq, p.sq);
-  load_rows<T, D, kLd>(dos, dout, p.do_ss, q0, kBq, p.sq);
+  load_tile_async<T, D, kBq>(q_s, q, p.q_ss, q0, p.sq);
+  load_tile_async<T, D, kBq>(do_s, dout, p.do_ss, q0, p.sq);
+  cp_async_commit();
+  const int n_tiles = key_tiles(p, min(q0 + kBq, p.sq) - 1, kBk);
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {  // the first tiles, one group each
+    if (it < n_tiles) {
+      load_tile_async<T, D, kBk>(k_s + it * kKBytes, k, p.k_ss, it * kBk, p.sk);
+      load_tile_async<T, D, kBk>(v_s + it * kKBytes, v, p.v_ss, it * kBk, p.sk);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();  // q and dO
   __syncthreads();
 
-  // this thread's rows, r = warp * 16 + g and r + 8: their statistics, and
-  // Delta, summed over D by the four threads of the row's quad
+  // Delta = rowsum(dO * O), two threads a row, D / 2 columns each, and the
+  // row's statistics: to shared memory for this CTA, to the scratch for
+  // kernel 2 (rows past Sq up to sq_pad as zeros)
+  {
+    const int r = tid / 2;
+    const int row = q0 + r;
+    const int c0 = (tid & 1) * (D / 16);  // in 16-byte chunks
+    float acc = 0.f;
+    if (row < p.sq) {
+      const T* orow = o + row * p.o_ss;
+#pragma unroll
+      for (int c = c0; c < c0 + D / 16; ++c) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(smem_dq + (do_s - raw) +
+                                                         S::at(r, c, kBq));
+        const T* oe = reinterpret_cast<const T*>(&ov);
+        const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc = fmaf(to_f32(de[i]), to_f32(oe[i]), acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((tid & 1) == 0) {
+      float m2 = 0.f;
+      float il = 0.f;
+      if (row < p.sq) {
+        const float mi = p.m[stat0 + row];
+        // a row with no key keeps -1e30 exactly (kernel 2's masked test)
+        m2 = mi == kMasked ? kMasked : mi * kLog2e;
+        il = 1.f / p.l[stat0 + row];
+      }
+      m2s[r] = m2;
+      ils[r] = il;
+      dls[r] = acc;
+      if (row < p.sq_pad) {
+        const int64_t plane = static_cast<int64_t>(p.batch) * p.hq * p.sq_pad;
+        float* out = p.delta + (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad + row;
+        out[0] = m2;
+        out[plane] = il;
+        out[2 * plane] = acc;
+      }
+    }
+  }
+  __syncthreads();
+
+  // this thread's rows: r0 and r0 + 8 of the tile
+  const int r0 = 16 * warp + lane / 4;
   float m_log2[2];
   float inv_l[2];
   float dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + g + 8 * i;
-    const int row = q0 + r;
-    const bool in = row < p.sq;
-    m_log2[i] = in ? p.m[stat0 + row] * kLog2e : 0.f;
-    inv_l[i] = in ? 1.f / p.l[stat0 + row] : 0.f;
-    float acc = 0.f;
-    if (in) {
-      const T* orow = o + row * p.o_ss;
-      for (int d = lane & 3; d < D; d += 4) {
-        acc = fmaf(to_f32(dos[r * kLd + d]), to_f32(orow[d]), acc);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    dl[i] = acc;
-    if (in && (lane & 3) == 0) {
-      p.delta[stat0 + row] = acc;
-    }
+    m_log2[i] = m2s[r0 + 8 * i];
+    inv_l[i] = ils[r0 + 8 * i];
+    dl[i] = dls[r0 + 8 * i];
   }
   const float scale_log2 = p.scale * kLog2e;
+  const int offset = p.sk - p.sq;
+  const int w0 = q0 + 16 * warp;  // the warp's first row
 
-  float dq[D / 8][4];
+  float dq[D / 2];
+  float s[kBk / 2];
+  float dp[kBk / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  for (int i = 0; i < kBk / 2; ++i) {
+    s[i] = 0.f;
+    dp[i] = 0.f;
   }
 
-  const int n_tiles = key_tiles(p, min(q0 + kBq, p.sq) - 1, kBk);
   for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 2>();  // this tile's copies, then every thread's, and every
+    __syncthreads();               // warp is done with the stage refilled next
+    if (it + kStages - 1 < n_tiles) {
+      const int at = (it + kStages - 1) % kStages;
+      const int k1 = (it + kStages - 1) * kBk;
+      load_tile_async<T, D, kBk>(k_s + at * kKBytes, k, p.k_ss, k1, p.sk);
+      load_tile_async<T, D, kBk>(v_s + at * kKBytes, v, p.v_ss, k1, p.sk);
+    }
+    cp_async_commit();
     const int k0 = it * kBk;
-    __syncthreads();  // the last tile's k and v are read
-    load_rows<T, D, kLd>(ks, k, p.k_ss, k0, kBk, p.sk);
-    load_rows<T, D, kLd>(vs, v, p.v_ss, k0, kBk, p.sk);
-    __syncthreads();
+    const uint32_t kt = k_s + (it % kStages) * kKBytes;
+    const uint32_t vt = v_s + (it % kStages) * kKBytes;
 
-    float s[kBk / 8][4];
-    float dp[kBk / 8][4];
+    pin(s);
+    pin(dp);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = 0.f;
-        dp[j][e] = 0.f;
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<T, kBk>(s, desc_k<D>(q_s, kBq, 0, kk), desc_k<D>(kt, kBk, 0, kk), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4];
-      uint32_t ado[4];
-      tq.a_frag(aq, warp * 16, kk * 16, lane);
-      tdo.a_frag(ado, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < kBk / 8; ++j) {
-        mma<T>(s[j], aq, tk.pair(8 * j + g, kk * 16 + t), tk.pair(8 * j + g, kk * 16 + t + 8));
-        mma<T>(dp[j], ado, tv.pair(8 * j + g, kk * 16 + t), tv.pair(8 * j + g, kk * 16 + t + 8));
-      }
+      wgmma_ss<T, kBk>(dp, desc_k<D>(do_s, kBq, 0, kk), desc_k<D>(vt, kBk, 0, kk), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    pin(dp);
 
-    // s -> dS, in place
+    // s -> dS, in place; element 4 j + 2 i + c: row q0 + r0 + 8 i, key k0 +
+    // 8 j + col0 + c. Inside (every row of the warp in the tensor and seeing
+    // every key of the tile) no pair needs a test: a loop of its own,
+    // without branches.
+    auto ds_of = [&](int e, int i) {
+      const float pv = ex2(fmaf(s[e], scale_log2, -m_log2[i])) * inv_l[i];
+      return pv * (dp[e] - dl[i]);
+    };
+    if (w0 + 15 < p.sq && k0 + kBk <= p.sk && (!p.causal || k0 + kBk - 1 <= w0 + offset)) {
 #pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) {
+      for (int e = 0; e < kBk / 2; ++e) s[e] = ds_of(e, (e / 2) % 2);
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const Pair pr = pair_at(p, q0 + warp * 16 + g + 8 * i, k0 + 8 * j + t + (e & 1));
-        float ds = 0.f;
-        if (pr.valid && !pr.masked) {
-          const float pv = ex2(fmaf(s[j][e], scale_log2, -m_log2[i])) * inv_l[i];
-          ds = pv * (dp[j][e] - dl[i]);
-        }
-        s[j][e] = ds;
+      for (int e = 0; e < kBk / 2; ++e) {
+        const int i = (e / 2) % 2;
+        const Pair pr = pair_at(p, q0 + r0 + 8 * i, k0 + 8 * (e / 4) + col0 + e % 2);
+        s[e] = pr.valid && !pr.masked ? ds_of(e, i) : 0.f;
       }
     }
 
     // dq += dS . k
+    uint32_t a[kBk / 16][4];
+    pack_a<T, kBk>(a, s);
+    pin(dq);
+    pin(a);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBk / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack2(static_cast<T*>(nullptr), s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack2(static_cast<T*>(nullptr), s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack2(static_cast<T*>(nullptr), s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack2(static_cast<T*>(nullptr), s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        mma<T>(dq[n], a, tk.pair_down(kk * 16 + t, 8 * n + g),
-               tk.pair_down(kk * 16 + t + 8, 8 * n + g));
-      }
+      wgmma_rs<T, D>(dq, a[kk], desc_t<D>(kt, kBk, kk));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dq);
+    pin(a);
   }
+  cp_async_wait<0>();
 
   T* out = static_cast<T*>(p.dq) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
+    const int row = q0 + r0 + 8 * i;
     if (row >= p.sq) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(row) * D + 8 * n + t) =
-          pack2(static_cast<T*>(nullptr), dq[n][2 * i] * p.scale, dq[n][2 * i + 1] * p.scale);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(row) * D + 8 * j + col0) =
+          pack2(static_cast<T*>(nullptr), dq[4 * j + 2 * i] * p.scale,
+                dq[4 * j + 2 * i + 1] * p.scale);
     }
   }
 }
 
 template <int D>
-constexpr int kDkdvBq = D == 128 ? 32 : 64;  // q rows per tile of kernel 2
-
-template <int D>
-constexpr size_t dkdv_mma_smem(int itemsize) {
-  return static_cast<size_t>((2 * 64 + 2 * kDkdvBq<D>) * (D + 8)) * itemsize +
-         3 * sizeof(float) * kDkdvBq<D>;
+constexpr size_t dkdv_tc_smem() {
+  // k and v (kTile rows), q and dO (kDkdvBq rows, kStages each), kStages x
+  // 3 x kDkdvBq statistics, and the room to align the tiles to 1024 bytes
+  return 1024 + static_cast<size_t>(2 * kTile + 2 * kStages * kDkdvBq<D>) * D * 2 +
+         kStages * 3 * sizeof(float) * kDkdvBq<D>;
 }
 
-// Kernel 2, tensor cores: dk and dv of one 64-key tile.
+// Kernel 2, tensor cores: one q head's dk and dv partials of one 64-key
+// tile. Three CTAs share an SM at D = 32 and 64, two at D = 128.
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_mma(const Params p) {
-  constexpr int kBk = 64;
+__global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3) flash_bwd_dkdv_tc(const Params p) {
+  constexpr int kBk = kTile;
   constexpr int kBq = kDkdvBq<D>;
-  constexpr int kLd = D + 8;
-  extern __shared__ uint4 smem_dkdv[];
-  T* ks = reinterpret_cast<T*>(smem_dkdv);
-  T* vs = ks + kBk * kLd;
-  T* qs = vs + kBk * kLd;
-  T* dos = qs + kBq * kLd;
-  float* ms = reinterpret_cast<float*>(dos + kBq * kLd);  // m in the log2 domain
-  float* ils = ms + kBq;                                  // 1 / l
-  float* dls = ils + kBq;                                 // Delta
-  const Tile<T, kLd> tq{qs}, tdo{dos}, tk{ks}, tv{vs};
+  constexpr uint32_t kKBytes = kBk * D * 2;
+  constexpr uint32_t kQBytes = kBq * D * 2;
+  extern __shared__ uint8_t smem_dkdv[];
+  const uint32_t raw = smem_u32(smem_dkdv);
+  const uint32_t k_s = (raw + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + kKBytes;
+  const uint32_t q_s = v_s + kKBytes;            // kStages tiles
+  const uint32_t do_s = q_s + kStages * kQBytes;  // kStages tiles
+  const uint32_t st_s = do_s + kStages * kQBytes;  // kStages x (m log2, 1 / l, Delta) x kBq
+  const float* sts = reinterpret_cast<const float*>(smem_dkdv + (st_s - raw));
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t = 2 * (lane & 3);
-  const int k0 = static_cast<int>(blockIdx.x) * kBk;  // the most q rows first
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  const int col0 = 2 * (lane % 4);
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = static_cast<int>(blockIdx.z) * kBk;  // the most q rows first
+  const int hk = h / p.group;
 
-  load_rows<T, D, kLd>(ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0,
-                       kBk, p.sk);
-  load_rows<T, D, kLd>(vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0,
-                       kBk, p.sk);
-  const float scale_log2 = p.scale * kLog2e;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* stats = p.delta + (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad;
+  const int64_t plane = static_cast<int64_t>(p.batch) * p.hq * p.sq_pad;
 
-  float dk[D / 8][4];
-  float dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk[n][e] = 0.f;
-      dv[n][e] = 0.f;
-    }
-  }
-
+  load_tile_async<T, D, kBk>(k_s, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh,
+                             p.k_ss, k0, p.sk);
+  load_tile_async<T, D, kBk>(v_s, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh,
+                             p.v_ss, k0, p.sk);
+  // the admitted q tiles in order: cur (in stage `stage`), then nxt
   const int nq = (p.sq + kBq - 1) / kBq;
-  for (int h = hk * p.group; h < (hk + 1) * p.group; ++h) {
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    const int64_t stat0 = (static_cast<int64_t>(b) * p.hq + h) * p.sq;
-    for (int iq = 0; iq < nq; ++iq) {
-      const int q0 = iq * kBq;
-      if (!q_tile_weighs(p, q0, kBq, k0)) continue;
-      __syncthreads();  // the last tile's q, dO and statistics are read
-      load_rows<T, D, kLd>(qs, q, p.q_ss, q0, kBq, p.sq);
-      load_rows<T, D, kLd>(dos, dout, p.do_ss, q0, kBq, p.sq);
-      for (int r = tid; r < kBq; r += kMmaThreads) {
-        const int row = q0 + r;
-        const bool in = row < p.sq;
-        const float mi = in ? p.m[stat0 + row] : 0.f;
-        // a row with no key keeps -1e30 exactly (the masked test below)
-        ms[r] = mi == kMasked ? kMasked : mi * kLog2e;
-        ils[r] = in ? 1.f / p.l[stat0 + row] : 0.f;
-        dls[r] = in ? p.delta[stat0 + row] : 0.f;
-      }
-      __syncthreads();
+  int cur = next_q_tile(p, 0, nq, kBq, k0);
+  int nxt = cur < nq ? next_q_tile(p, cur + 1, nq, kBq, k0) : nq;
+  auto load_q_tile = [&](int iq, int at) {
+    load_tile_async<T, D, kBq>(q_s + at * kQBytes, q, p.q_ss, iq * kBq, p.sq);
+    load_tile_async<T, D, kBq>(do_s + at * kQBytes, dout, p.do_ss, iq * kBq, p.sq);
+    load_stats_async<kBq>(st_s + at * 3 * kBq * 4, stats, plane, iq * kBq, p.sq_pad);
+  };
+  if (cur < nq) {
+    load_q_tile(cur, 0);
+  }
+  cp_async_commit();  // with k and v
+  if (nxt < nq) {
+    load_q_tile(nxt, 1);
+  }
+  cp_async_commit();
 
-      float st[kBq / 8][4];  // s^T, then P^T
-      float dpt[kBq / 8][4];  // dP^T, then dS^T
-#pragma unroll
-      for (int j = 0; j < kBq / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[j][e] = 0.f;
-          dpt[j][e] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4];
-        uint32_t av[4];
-        tk.a_frag(ak, warp * 16, kk * 16, lane);
-        tv.a_frag(av, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int j = 0; j < kBq / 8; ++j) {
-          mma<T>(st[j], ak, tq.pair(8 * j + g, kk * 16 + t), tq.pair(8 * j + g, kk * 16 + t + 8));
-          mma<T>(dpt[j], av, tdo.pair(8 * j + g, kk * 16 + t),
-                 tdo.pair(8 * j + g, kk * 16 + t + 8));
-        }
-      }
+  const float scale_log2 = p.scale * kLog2e;
+  const int kw = k0 + 16 * warp;      // the warp's first key
+  const int key0 = kw + lane / 4;     // this thread's keys: key0, key0 + 8
 
-      // element e of n-block j: key k0 + warp * 16 + g + 8 (e / 2), row
-      // q0 + 8 j + t + (e & 1)
+  float dk[D / 2];
+  float dv[D / 2];
+  float st[kBq / 2];   // s^T, then P^T
+  float dpt[kBq / 2];  // dP^T, then dS^T
 #pragma unroll
-      for (int j = 0; j < kBq / 8; ++j) {
+  for (int i = 0; i < D / 2; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 8 * j + t + (e & 1);
-          const Pair pr = pair_at(p, q0 + r, k0 + warp * 16 + g + 8 * (e / 2));
-          float pv = 0.f;
-          float ds = 0.f;
-          if (pr.valid) {
-            if (pr.masked) {
-              pv = ms[r] == kMasked ? ils[r] : 0.f;  // exp(-1e30 - m) / l
-            } else {
-              pv = ex2(fmaf(st[j][e], scale_log2, -ms[r])) * ils[r];
-              ds = pv * (dpt[j][e] - dls[r]);
-            }
-          }
-          st[j][e] = pv;
-          dpt[j][e] = ds;
-        }
-      }
+  for (int i = 0; i < kBq / 2; ++i) {
+    st[i] = 0.f;
+    dpt[i] = 0.f;
+  }
 
-      // dv += P^T . dO and dk += dS^T . q
+  for (int stage = 0; cur < nq; stage = stage == kStages - 1 ? 0 : stage + 1) {
+    const int q0 = cur * kBq;
+    const int after = nxt < nq ? next_q_tile(p, nxt + 1, nq, kBq, k0) : nq;
+    cp_async_wait<kStages - 2>();  // this tile's copies (the first time with k and v), then
+    __syncthreads();               // every thread's, and every warp is done with the stage
+    if (after < nq) {              // refilled here
+      load_q_tile(after, stage == 0 ? kStages - 1 : stage - 1);
+    }
+    cp_async_commit();
+    cur = nxt;
+    nxt = after;
+
+    const uint32_t qt = q_s + stage * kQBytes;
+    const uint32_t dot = do_s + stage * kQBytes;
+    const float* st_m = sts + stage * 3 * kBq;  // m log2, then 1 / l, then Delta
+    const float* st_il = st_m + kBq;
+    const float* st_dl = st_il + kBq;
+
+    pin(st);
+    pin(dpt);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBq / 16; ++kk) {
-        uint32_t ap[4];
-        uint32_t ads[4];
-        ap[0] = pack2(static_cast<T*>(nullptr), st[2 * kk][0], st[2 * kk][1]);
-        ap[1] = pack2(static_cast<T*>(nullptr), st[2 * kk][2], st[2 * kk][3]);
-        ap[2] = pack2(static_cast<T*>(nullptr), st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        ap[3] = pack2(static_cast<T*>(nullptr), st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        ads[0] = pack2(static_cast<T*>(nullptr), dpt[2 * kk][0], dpt[2 * kk][1]);
-        ads[1] = pack2(static_cast<T*>(nullptr), dpt[2 * kk][2], dpt[2 * kk][3]);
-        ads[2] = pack2(static_cast<T*>(nullptr), dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        ads[3] = pack2(static_cast<T*>(nullptr), dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<T, kBq>(st, desc_k<D>(k_s, kBk, 0, kk), desc_k<D>(qt, kBq, 0, kk), kk > 0);
+    }
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          mma<T>(dv[n], ap, tdo.pair_down(kk * 16 + t, 8 * n + g),
-                 tdo.pair_down(kk * 16 + t + 8, 8 * n + g));
-          mma<T>(dk[n], ads, tq.pair_down(kk * 16 + t, 8 * n + g),
-                 tq.pair_down(kk * 16 + t + 8, 8 * n + g));
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<T, kBq>(dpt, desc_k<D>(v_s, kBk, 0, kk), desc_k<D>(dot, kBq, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(st);
+    pin(dpt);
+
+    // element 4 j + 2 i + c: key key0 + 8 i, row q0 + 8 j + col0 + c.
+    // Inside (every row of the tile in the tensor and seeing every key of
+    // the warp) no pair needs a test: a loop of its own, without branches.
+    const bool inside = q0 + kBq <= p.sq && kw + 16 <= p.sk &&
+                        (!p.causal || kw + 15 <= q0 + p.sk - p.sq);
+#pragma unroll
+    for (int j = 0; j < kBq / 8; ++j) {
+      const int r = 8 * j + col0;
+      const float2 m2 = *reinterpret_cast<const float2*>(st_m + r);
+      const float2 il = *reinterpret_cast<const float2*>(st_il + r);
+      const float2 dl = *reinterpret_cast<const float2*>(st_dl + r);
+      const float mr[2] = {m2.x, m2.y};
+      const float ilr[2] = {il.x, il.y};
+      const float dlr[2] = {dl.x, dl.y};
+      if (inside) {
+#pragma unroll
+        for (int e = 4 * j; e < 4 * j + 4; ++e) {
+          const int c = e % 2;
+          st[e] = ex2(fmaf(st[e], scale_log2, -mr[c])) * ilr[c];
+          dpt[e] = st[e] * (dpt[e] - dlr[c]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 4 * j; e < 4 * j + 4; ++e) {
+          const int c = e % 2;
+          const Pair pr = pair_at(p, q0 + r + c, key0 + 8 * ((e / 2) % 2));
+          const float pv = ex2(fmaf(st[e], scale_log2, -mr[c])) * ilr[c];
+          const float ds = pv * (dpt[e] - dlr[c]);
+          // a masked pair: exp(-1e30 - m) / l, 1 / l on a row with no key
+          st[e] = !pr.valid ? 0.f : pr.masked ? (mr[c] == kMasked ? ilr[c] : 0.f) : pv;
+          dpt[e] = pr.valid && !pr.masked ? ds : 0.f;
         }
       }
     }
-  }
 
-  const int64_t base = (static_cast<int64_t>(b) * p.hkv + hk) * p.sk * D;
-  T* out_k = static_cast<T*>(p.dk) + base;
-  T* out_v = static_cast<T*>(p.dv) + base;
+    // dv += P^T . dO and dk += dS^T . q
+    uint32_t ap[kBq / 16][4];
+    uint32_t ads[kBq / 16][4];
+    pack_a<T, kBq>(ap, st);
+    pack_a<T, kBq>(ads, dpt);
+    pin(dk);
+    pin(dv);
+    pin(ap);
+    pin(ads);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk) {
+      wgmma_rs<T, D>(dv, ap[kk], desc_t<D>(dot, kBq, kk));
+      wgmma_rs<T, D>(dk, ads[kk], desc_t<D>(qt, kBq, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dk);
+    pin(dv);
+    pin(ap);
+    pin(ads);
+  }
+  cp_async_wait<0>();
+
+  // this head's partials, f32, dk unscaled
+  const int64_t base = (static_cast<int64_t>(b) * p.hq + h) * p.sk * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int key = k0 + warp * 16 + g + 8 * i;
+    const int key = key0 + 8 * i;
     if (key >= p.sk) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int64_t at = static_cast<int64_t>(key) * D + 8 * n + t;
-      *reinterpret_cast<uint32_t*>(out_k + at) = pack2(
-          static_cast<T*>(nullptr), dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(out_v + at) =
-          pack2(static_cast<T*>(nullptr), dv[n][2 * i], dv[n][2 * i + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      const int64_t at = base + static_cast<int64_t>(key) * D + 8 * j + col0;
+      *reinterpret_cast<float2*>(p.dk_part + at) =
+          make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<float2*>(p.dv_part + at) =
+          make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
     }
   }
 }
+
+// Kernel 3: dk and dv of each kv head, the sums of its group's partials in
+// head order, four elements a thread; dk scaled, both rounded once to T.
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads) flash_bwd_reduce_dkdv(const Params p) {
+  const int64_t per_head = static_cast<int64_t>(p.sk) * p.d;
+  const int64_t n4 = static_cast<int64_t>(p.batch) * p.hkv * per_head / 4;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
+  if (i >= n4) {
+    return;
+  }
+  const int64_t e = 4 * i;
+  const int64_t bh = e / per_head;  // b * hkv + hk; its first q head is bh * group
+  const int64_t src = bh * p.group * per_head + (e - bh * per_head);
+  float4 sk = *reinterpret_cast<const float4*>(p.dk_part + src);
+  float4 sv = *reinterpret_cast<const float4*>(p.dv_part + src);
+  for (int j = 1; j < p.group; ++j) {
+    const float4 xk = *reinterpret_cast<const float4*>(p.dk_part + src + j * per_head);
+    const float4 xv = *reinterpret_cast<const float4*>(p.dv_part + src + j * per_head);
+    sk.x += xk.x;
+    sk.y += xk.y;
+    sk.z += xk.z;
+    sk.w += xk.w;
+    sv.x += xv.x;
+    sv.y += xv.y;
+    sv.z += xv.z;
+    sv.w += xv.w;
+  }
+  const uint2 ok = make_uint2(pack2(static_cast<T*>(nullptr), sk.x * p.scale, sk.y * p.scale),
+                              pack2(static_cast<T*>(nullptr), sk.z * p.scale, sk.w * p.scale));
+  const uint2 ov = make_uint2(pack2(static_cast<T*>(nullptr), sv.x, sv.y),
+                              pack2(static_cast<T*>(nullptr), sv.z, sv.w));
+  *reinterpret_cast<uint2*>(static_cast<T*>(p.dk) + e) = ok;
+  *reinterpret_cast<uint2*>(static_cast<T*>(p.dv) + e) = ov;
+}
+
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
@@ -784,6 +1201,7 @@ __global__ void __launch_bounds__(kSimtThreads) flash_bwd_dkdv_simt(const Params
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -802,18 +1220,29 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Params& 
 }
 
 template <typename T, int D>
-cudaError_t launch_mma(const Params& p, int b, cudaStream_t stream) {
-  const dim3 grid_dq(static_cast<unsigned>((p.sq + 63) / 64), static_cast<unsigned>(p.hq),
-                     static_cast<unsigned>(b));
-  cudaError_t err = launch(flash_bwd_dq_mma<T, D>, grid_dq, kMmaThreads,
-                           dq_mma_smem<D>(sizeof(T)), p, stream);
+cudaError_t launch_tc(const Params& p, int b, cudaStream_t stream) {
+  const int64_t nq = (p.sq + kTile - 1) / kTile;
+  const int64_t nk = (p.sk + kTile - 1) / kTile;
+  const int64_t blocks =
+      (static_cast<int64_t>(b) * p.hkv * p.sk * D / 4 + kReduceThreads - 1) / kReduceThreads;
+  if (p.dk_part == nullptr || p.dv_part == nullptr || nq > 65535 || nk > 65535 ||
+      blocks > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  const unsigned hq = static_cast<unsigned>(p.hq);
+  const unsigned bu = static_cast<unsigned>(b);
+  cudaError_t err = launch(flash_bwd_dq_tc<T, D>, dim3(hq, bu, static_cast<unsigned>(nq)),
+                           kMmaThreads, dq_tc_smem<D>(), p, stream);
   if (err != cudaSuccess) {
     return err;
   }
-  const dim3 grid_kv(static_cast<unsigned>((p.sk + 63) / 64), static_cast<unsigned>(p.hkv),
-                     static_cast<unsigned>(b));
-  return launch(flash_bwd_dkdv_mma<T, D>, grid_kv, kMmaThreads, dkdv_mma_smem<D>(sizeof(T)), p,
-                stream);
+  err = launch(flash_bwd_dkdv_tc<T, D>, dim3(hq, bu, static_cast<unsigned>(nk)), kMmaThreads,
+               dkdv_tc_smem<D>(), p, stream);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  return launch(flash_bwd_reduce_dkdv<T>, dim3(static_cast<unsigned>(blocks)), kReduceThreads,
+                0, p, stream);
 }
 
 template <int D>
@@ -831,14 +1260,14 @@ cudaError_t launch_simt(const Params& p, int b, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t launch_mma_dim(const Params& p, int b, int d, cudaStream_t stream) {
+cudaError_t launch_tc_dim(const Params& p, int b, int d, cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch_mma<T, 32>(p, b, stream);
+      return launch_tc<T, 32>(p, b, stream);
     case 64:
-      return launch_mma<T, 64>(p, b, stream);
+      return launch_tc<T, 64>(p, b, stream);
     case 128:
-      return launch_mma<T, 128>(p, b, stream);
+      return launch_tc<T, 128>(p, b, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -857,29 +1286,54 @@ cudaError_t launch_simt_dim(const Params& p, int b, int d, cudaStream_t stream) 
   }
 }
 
+// The sizes and flags of one call; false where they are out of range.
+bool shape_params(Params& p, int b, int hq, int hkv, int sq, int sk, int d, float scale,
+                  int causal) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 || b > 65535 ||
+      hq > 65535 || sq > INT_MAX - 3) {
+    return false;
+  }
+  p.batch = b;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.sq = sq;
+  p.sk = sk;
+  p.d = d;
+  p.group = hq / hkv;
+  p.sq_pad = (sq + 3) / 4 * 4;
+  p.scale = scale;
+  p.causal = causal;
+  return true;
+}
+
 }  // namespace
 
 // q, k, v, o, dout: device pointers of `dtype` (0 float32, 1 bfloat16, 2
 // float16); q, o, dout (b, hq, sq, d), k, v (b, hkv, sk, d), read through
 // `strides`: 15 element strides, (b, h, s) of q, k, v, o, dout in that order,
 // every d stride 1 (16-bit types: rows 16-byte aligned). m, l: the forward's
-// (b, hq, sq) f32 row statistics. delta: (b, hq, sq) f32 scratch. dq (b, hq,
-// sq, d), dk, dv (b, hkv, sk, d): contiguous outputs of `dtype`. The caller
-// makes the tensors' device current. Two kernels go on `stream` in order (dq
+// (b, hq, sq) f32 row statistics. delta: f32 scratch, (b, hq, sq) for
+// float32, (3, b, hq, sq rounded up to 4) for the 16-bit types. dk_part,
+// dv_part: (b, hq, sk, d) f32 scratch each for the 16-bit types (unused,
+// may be null, for float32). dq (b, hq, sq, d), dk, dv (b, hkv, sk, d):
+// contiguous outputs of `dtype`. The caller makes the tensors' device
+// current. The kernels go on `stream` in order (16-bit: dq and the rows'
+// statistics, dk and dv per q head, the sum over each group; float32: dq
 // and Delta, then dk and dv); nothing is synchronised or allocated here.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const float* m,
                                           const float* l, float* delta, void* dq, void* dk,
-                                          void* dv, const int64_t* strides, int b, int hq,
-                                          int hkv, int sq, int sk, int d, int dtype,
-                                          float scale, int causal, cudaStream_t stream) {
+                                          void* dv, float* dk_part, float* dv_part,
+                                          const int64_t* strides, int b, int hq, int hkv,
+                                          int sq, int sk, int d, int dtype, float scale,
+                                          int causal, cudaStream_t stream) {
+  Params p;
   if (q == nullptr || k == nullptr || v == nullptr || o == nullptr || dout == nullptr ||
       m == nullptr || l == nullptr || delta == nullptr || dq == nullptr || dk == nullptr ||
-      dv == nullptr || strides == nullptr || b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 ||
-      sq <= 0 || sk <= 0 || b > 65535 || hq > 65535) {
+      dv == nullptr || strides == nullptr ||
+      !shape_params(p, b, hq, hkv, sq, sk, d, scale, causal)) {
     return cudaErrorInvalidValue;
   }
-  Params p;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -891,23 +1345,18 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
+  p.dk_part = dk_part;
+  p.dv_part = dv_part;
   int64_t* fields[15] = {&p.q_sb, &p.q_sh, &p.q_ss, &p.k_sb, &p.k_sh, &p.k_ss, &p.v_sb, &p.v_sh,
                          &p.v_ss, &p.o_sb, &p.o_sh, &p.o_ss, &p.do_sb, &p.do_sh, &p.do_ss};
   for (int i = 0; i < 15; ++i) *fields[i] = strides[i];
-  p.hq = hq;
-  p.hkv = hkv;
-  p.sq = sq;
-  p.sk = sk;
-  p.group = hq / hkv;
-  p.scale = scale;
-  p.causal = causal;
   switch (dtype) {
     case 0:
       return launch_simt_dim(p, b, d, stream);
     case 1:
-      return launch_mma_dim<__nv_bfloat16>(p, b, d, stream);
+      return launch_tc_dim<__nv_bfloat16>(p, b, d, stream);
     case 2:
-      return launch_mma_dim<__half>(p, b, d, stream);
+      return launch_tc_dim<__half>(p, b, d, stream);
     default:
       return cudaErrorInvalidValue;
   }

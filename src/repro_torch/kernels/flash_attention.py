@@ -19,8 +19,11 @@ dim, so the model's transposed v view needs no copy.
 The forward stores each row's softmax statistics m and l when asked
 (``stats=True``); :func:`flash_attention_bwd` takes them with the forward's
 output and the output's gradient. Its route is fixed by dtype as well:
-bfloat16 and float16 on the tensor cores (``mma.sync``), float32 on the CUDA
-cores; :func:`bwd_launch_plan` holds its checks.
+bfloat16 and float16 on the tensor cores (route ``"mma"``: ``wgmma``; three
+launches: dq, dk and dv per q head into f32 partials, the sum over each kv
+head's group), float32 on the CUDA cores (two launches);
+:func:`bwd_launch_plan` holds its checks and :func:`bwd_scratch` its
+scratch.
 """
 from __future__ import annotations
 
@@ -113,7 +116,7 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     else:
         lib.flash_attention_bwd_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64p,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64p,
             c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, ptr,
         ]
         lib.flash_attention_bwd_launch.restype = c_int
@@ -302,6 +305,22 @@ def check_stats(shape, m: torch.Tensor, l: torch.Tensor) -> None:
                              f"float32 {tuple(shape)}, not {st.dtype} {tuple(st.shape)}")
 
 
+def bwd_scratch(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Sk: int,
+                D: int) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The f32 scratch one backward call allocates, ``{name: (shape,
+    dtype)}``, in the order the kernel takes it. float32: ``delta`` (B, Hq,
+    Sq), rowsum(dO * O). bfloat16 and float16: ``rows`` (3, B, Hq, Sq
+    rounded up to 4: m in log base 2, 1 / l and Delta, so that every q
+    tile's statistics are 16-byte copies), and ``dk_part``, ``dv_part``
+    (B, Hq, Sk, D), each q head's unscaled dk and dv before the sum over
+    its kv head's group."""
+    f32 = torch.float32
+    if BWD_ROUTES[dtype] == "simt":
+        return {"delta": ((B, Hq, Sq), f32)}
+    part = ((B, Hq, Sk, D), f32)
+    return {"rows": ((3, B, Hq, -(-Sq // 4) * 4), f32), "dk_part": part, "dv_part": part}
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
@@ -313,12 +332,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient. Returns contiguous dq (B, Hq, Sq, D) and dk, dv (B, Hkv, Sk,
     D) in their inputs' dtype, equal within rounding to
     ``kernels.ref.flash_attention_bwd_plain``, the same bits from run to run
-    (no atomics). A ``do`` without unit stride in the head dim is copied
-    first; everything else the kernel cannot take raises. Each call
-    launches two kernels in order (dq and Delta = rowsum(dO * O), then dk
-    and dv): ``flash_attention_bwd.launches`` counts calls,
-    ``launches_by_route`` calls per route, and :func:`thread_bwd_launches`
-    the calling thread's.
+    (no atomics; every sum in a fixed order). A ``do`` without unit stride
+    in the head dim is copied first; everything else the kernel cannot take
+    raises. Each call launches its kernels in order (bfloat16, float16: dq
+    with Delta = rowsum(dO * O), dk and dv per q head, their sum over each
+    group; float32: dq and Delta, then dk and dv)
+    on the scratch of :func:`bwd_scratch`: ``flash_attention_bwd.launches``
+    counts calls, ``launches_by_route`` calls per route, and
+    :func:`thread_bwd_launches` the calling thread's.
     """
     if do.dim() == 4 and do.stride(3) != 1:
         do = do.contiguous()
@@ -338,13 +359,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, Sk, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    scratch = [torch.empty(shape, dtype=dt, device=q.device)
+               for shape, dt in bwd_scratch(q.dtype, B, Hq, Hkv, Sq, Sk, D).values()]
+    parts = [t.data_ptr() for t in scratch[1:]] or [None, None]  # f32: no partials
     lib = _load("bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         strides = (ctypes.c_int64 * 15)(*(s for t in ts for s in t.stride()[:3]))
         err = lib.flash_attention_bwd_launch(
-            *(t.data_ptr() for t in (*ts, m, l, delta, dq, dk, dv)), strides,
+            *(t.data_ptr() for t in (*ts, m, l, scratch[0], dq, dk, dv)), *parts, strides,
             B, Hq, Hkv, Sq, Sk, D, _BWD_DTYPES[q.dtype], scale_f, int(causal), stream)
     if err != 0:
         msg = lib.flash_attention_bwd_error_string(err).decode()

@@ -154,7 +154,8 @@ def test_restart_on_card_is_bitwise(deterministic, tmp_path, backend):
 
 # (B, Hq, Hkv, Sq, Sk, D, causal): the reference test's shapes, non-causal,
 # rows with no key (Sq > Sk), qwen2-0.5b's group of 7, ragged tiles, head
-# dims 32 and 128 with ragged tiles and rows with no key
+# dims 32 and 128 with ragged tiles and rows with no key, and the groups of
+# granite-8b (4) and command-r-plus-104b (12)
 FLASH_CASES = [
     (1, 1, 1, 128, 128, 64, True),
     (2, 4, 2, 256, 256, 64, True),
@@ -170,6 +171,9 @@ FLASH_CASES = [
     (1, 2, 1, 200, 200, 128, False),
     (1, 4, 2, 200, 120, 32, True),
     (1, 4, 2, 120, 200, 32, False),
+    (1, 8, 2, 333, 200, 128, True),
+    (1, 12, 1, 300, 200, 64, True),
+    (1, 12, 1, 130, 257, 32, False),
 ]
 # (atol, rtol): f32 for the two sum orders; bf16 / f16 one ulp of the
 # output plus the sum order where the output is near 0
@@ -364,9 +368,13 @@ def test_flash_forward_statistics(cuda):
         torch.testing.assert_close(l, pl, atol=0, rtol=1e-5)
 
 
-def test_flash_bwd_same_bits_run_to_run(cuda):
-    """No atomics: dk and dv sum the group's heads in a fixed order."""
-    ins = _flash_bwd_inputs(cuda, (1, 14, 2, 2048, 2048, 64, True), torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 4, 7, 12])
+def test_flash_bwd_same_bits_run_to_run(cuda, group, d, dtype):
+    """No atomics: dk and dv sum the group's q heads' partials in a fixed
+    order; rows with no key (Sq > Sk) and ragged tiles included."""
+    ins = _flash_bwd_inputs(cuda, (1, 2 * group, 2, 1040, 776, d, True), dtype)
     first = flash_attention.flash_attention_bwd(*ins)
     for _ in range(3):
         again = flash_attention.flash_attention_bwd(*ins)

@@ -146,16 +146,34 @@ def test_rows_with_no_key_spread_do_over_every_key_and_get_no_dq():
     _close(dv.numpy(), want.expand(B, Hkv, Sk, D).numpy())
 
 
-@pytest.mark.parametrize("causal,shape", [(True, (1, 4, 2, 24, 16, 32)),
-                                          (False, (1, 2, 1, 16, 24, 32))], ids=str)
-def test_gradcheck_of_the_autograd_function_in_f64(causal, shape):
+@pytest.fixture
+def one_thread():
+    """gradcheck runs thousands of tiny f64 ops: intra-op threads only
+    contend with the other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# causal: a group of 2; Sq > Sk, so rows 0..5 have no key; 3 q blocks and 3
+# key blocks, one q block mixing rows with and without a key, and the
+# diagonal cutting through key blocks (an offset of -6 at blocks of 4 and
+# 2). No block is ragged: the entry point, like the reference's, refuses a
+# sequence that its block does not divide (the card kernel's ragged tiles
+# are tested on the card)
+@pytest.mark.parametrize("causal,shape,blocks", [(True, (1, 4, 2, 12, 6, 16), (4, 2)),
+                                                 (False, (1, 2, 1, 16, 24, 32), (8, 8))],
+                         ids=str)
+def test_gradcheck_of_the_autograd_function_in_f64(one_thread, causal, shape, blocks):
     B, Hq, Hkv, Sq, Sk, D = shape
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_(True)
                for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
 
     def fn(q, k, v):
-        return ops.flash_attention(q, k, v, causal=causal, block_q=8, block_k=8)
+        return ops.flash_attention(q, k, v, causal=causal, block_q=blocks[0],
+                                   block_k=blocks[1])
 
     assert torch.autograd.gradcheck(fn, (q, k, v))
 
@@ -251,3 +269,76 @@ def test_backward_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.flash_attention(q, k, v, stats=True)
     assert kernel.flash_attention_bwd.launches == before
+
+
+# the training shape: q (2, 14, 8192, 64), k and v (2, 2, 8192, 64)
+_TRAIN = (2, 14, 2, 8192, 8192, 64)
+
+
+def test_tensor_core_backward_scratch():
+    """bfloat16 and float16: the rows' statistics (3 planes, Sq rounded up
+    to 4 so that every q tile's are 16-byte copies) and each q head's f32
+    dk and dv partials; float32 keeps its one Delta plane."""
+    B, Hq, Hkv, Sq, Sk, D = _TRAIN
+    for dtype in (torch.bfloat16, torch.float16):
+        scratch = kernel.bwd_scratch(dtype, *_TRAIN)
+        assert scratch == {"rows": ((3, B, Hq, Sq), torch.float32),
+                           "dk_part": ((B, Hq, Sk, D), torch.float32),
+                           "dv_part": ((B, Hq, Sk, D), torch.float32)}
+        nbytes = {name: 4 * int(np.prod(shape)) for name, (shape, _) in scratch.items()}
+        assert nbytes == {"rows": 2_752_512, "dk_part": 58_720_256, "dv_part": 58_720_256}
+    assert kernel.bwd_scratch(torch.bfloat16, 1, 7, 1, 13, 9, 32)["rows"][0] == (3, 1, 7, 16)
+    assert kernel.bwd_scratch(torch.float32, *_TRAIN) == {
+        "delta": ((B, Hq, Sq), torch.float32)}
+
+
+def test_per_tile_limit_sees_what_the_whole_tensor_limit_misses():
+    """chip_smoke.py's second backward limit takes max|want| per 64-row tile
+    of each (batch, head): an error in a tile whose gradient is small (the
+    last rows' dq, the last key tile's dk) passes the whole-tensor limit and
+    fails this one; the kernel's own rounding passes both."""
+    import chip_smoke
+
+    rng = np.random.default_rng(11)
+    want = torch.from_numpy(rng.standard_normal((2, 3, 200, 32))).to(torch.bfloat16)
+    want[:, :, 128:] *= 1e-3  # the last two tiles' gradient is small; 200 rows: one ragged
+    wrong = want.clone()
+    wrong[1, 2, 190:] = 0
+    assert chip_smoke._bwd_tol_ratio(wrong, want) <= 1 < chip_smoke._bwd_tile_ratio(wrong, want)
+    # one bf16 ulp off, everywhere: within both limits
+    ulp = (want.float() * (1 + 2.0 ** -8)).to(torch.bfloat16)
+    assert chip_smoke._bwd_tol_ratio(ulp, want) <= 1
+    assert chip_smoke._bwd_tile_ratio(ulp, want) <= 1
+    assert chip_smoke._bwd_tile_ratio(want, want) == 0
+    zero = torch.zeros_like(want)
+    zero[0, 0, 199] = 1  # an error where the whole tile is 0
+    assert chip_smoke._bwd_tile_ratio(zero, torch.zeros_like(want)) == float("inf")
+
+
+def test_ptxas_report_reads_each_kernel(tmp_path):
+    """The assembler's report kept beside a built library: each kernel's
+    name and template arguments out of its mangled name, its registers and
+    its spills."""
+    from repro_torch.kernels import _build
+
+    ns = "_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_04843d30"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '_ZN{len(ns)}{ns}16flash_bwd_dq_mma"
+        f"I13__nv_bfloat16Li64EEEvNS_6ParamsE' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 384 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '_ZN{len(ns)}{ns}21flash_bwd_reduce_dkdv"
+        f"I6__halfEEvNS_6ParamsE' for 'sm_90a'",
+        "ptxas info    : Function properties for y",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 0 barriers, 384 bytes cmem[0]",
+    ])
+    (tmp_path / "libx.log").write_text(log)
+    assert _build.ptxas_report(tmp_path / "libx.so") == [
+        {"kernel": "flash_bwd_dq_mma", "dtype": "bf16", "d": 64, "stack": 0,
+         "spill_stores": 0, "spill_loads": 0, "registers": 128},
+        {"kernel": "flash_bwd_reduce_dkdv", "dtype": "f16", "d": None, "stack": 8,
+         "spill_stores": 4, "spill_loads": 4, "registers": 255},
+    ]
