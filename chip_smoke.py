@@ -48,7 +48,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    CLI default). Every kernel's launch count is zeroed just before and
    read just after; ``chunk_digest``'s must be > 0, and every shadow sync
    that digests must make at most ceil(tensor leaves / capacity) launches
-   (1 for the 43 leaves of this state);
+   (1 for the 43 leaves of this state); each ``[ckpt]`` line splits its
+   phase-1 fetch into allocation, page faults (a buffer's first sync
+   faults its pages in on torch's threads) and copy;
 4. restart: restore step 4 onto the card, run steps 5 and 6, and require
    the state to equal the stored step-6 image bit for bit (that image is
    restored with ``verify``, which re-digests every chunk on the host);
@@ -59,11 +61,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    the same bits, and the 32 served logits must lie no further from the
    f32 model's than one bf16 forward over prompt + 31 served tokens (the
    dense lowering) does (teacher forcing). ``[serve:proxy]``: the serve CLI
-   with ``--device-runner proxy`` on the same image at full width and
-   depth (lazy restore onto the CPU, batch 2, prompt 144, 32 generated
-   tokens: 175 proxied ``decode_arch`` steps; a prompt whose greedy tokens
-   are not all one token, so a misplaced or dropped token write shows), in
-   a child process that
+   with ``--device-runner proxy --num-layers 2`` on the step-6 params cut
+   to their first 2 of 24 layers (full width; a cut for the script's time),
+   written by a ``save_sync`` as an image of their own (lazy restore onto
+   the CPU, batch 2, prompt 144, 32 generated tokens: 175 proxied
+   ``decode_arch`` steps; the greedy tokens must not be all one token, so a
+   misplaced or dropped token write shows), in a child process that
    must never create a CUDA context: once with a local proxy (segment
    transport) SIGKILLed after step 80 is issued, which must restart once
    and replay, once against a ``repro_torch.remote.host`` daemon on the
@@ -185,15 +188,22 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    provenance table (one rank's ack) equal to ``chunk_digest_np`` over the
    inline replica. ``[cluster:remote]``: the same run with each rank's
    proxy a session on one of 2 proxy-host daemons on the card that the
-   coordinator places it on (stream transport), daemon ph0 SIGKILLed after
-   the first commit: at least one rank must be rescheduled onto ph1, a
-   ``proxy_host_death`` alert journaled before a committed round, images
-   at 2 and 4 and the final digests equal to ``[cluster:proxy]``'s inline
-   run, every ack's provenance table equal to ``chunk_digest_np``, and
-   every ack must count exactly one digest launch per proxied step, though
-   ph1 then hosts both sessions. Printed: the placements, the moved ranks
-   and the reschedule latency (death reported to the moved rank's first
-   SYNCED on the survivor);
+   coordinator places it on (stream transport), traced into an obs dir,
+   under ``repro_torch.chaos``'s injection engine: once the first round
+   has committed it journals (``INJECT_LOG.jsonl``) and then fires a
+   heartbeat clock skew on rank 1, a SIGKILL of daemon ph0 and a torn
+   frame at the coordinator: at least one rank must be rescheduled onto
+   ph1, a ``proxy_host_death`` alert journaled before a committed round,
+   images at 2 and 4 and the final digests equal to ``[cluster:proxy]``'s
+   inline run, every ack's provenance table equal to ``chunk_digest_np``,
+   and every ack must count exactly one digest launch per proxied step,
+   though ph1 then hosts both sessions; ``repro_torch.obs.soak.verdict``
+   over the run dir must pass with all six booleans true (every injection
+   evidenced, every alert explained, converged, leaks flat, critical path
+   checked, no committed round over ``CHAOS_ROUND_ENVELOPE_S``) over the
+   3 journaled injections, printed on a ``[chaos]`` line. Printed: the
+   placements, the moved ranks and the reschedule latency (death reported
+   to the moved rank's first SYNCED on the survivor);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 Every phase ends with a ``[<phase>] wall_s=...`` line. It exits nonzero
@@ -757,6 +767,15 @@ def _counts() -> dict:
             "flash_attention_bwd_by_route": dict(bwd.launches_by_route)}
 
 
+def _fetch_split(r) -> str:
+    """A checkpoint's phase-1 sync and its fetch: allocation, page faults
+    (a first sync's), the copy."""
+    copy_us = r.fetch_us - r.alloc_us - r.prefault_us
+    return (f"sync_ms={r.sync_us / 1e3:.1f} fetch_ms={r.fetch_us / 1e3:.1f} "
+            f"(alloc_ms={r.alloc_us / 1e3:.1f} prefault_ms={r.prefault_us / 1e3:.1f} "
+            f"copy_ms={copy_us / 1e3:.1f})")
+
+
 def phase_main_path(store: str, codec: str):
     from repro_torch.core.shadow import ShadowStateManager
     from repro_torch.kernels import chunk_digest
@@ -791,7 +810,7 @@ def phase_main_path(store: str, codec: str):
     for r in out["results"]:
         print(f"[ckpt] step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
               f"persist_ms={r.persist_s * 1e3:.1f} digest_ms="
-              f"{r.digest_us / 1e3:.1f} synced={r.chunks_synced} "
+              f"{r.digest_us / 1e3:.1f} {_fetch_split(r)} synced={r.chunks_synced} "
               f"written={r.chunks_written} reused={r.chunks_reused}")
     digesting = [(n, leaves) for n, leaves in syncs if n]
     allowed = {leaves: -(-leaves // chunk_digest.CAPACITY) for _, leaves in syncs}
@@ -935,15 +954,42 @@ def phase_serve(store: str) -> dict:
     return {"launches": launches}
 
 
-# [serve:proxy]: the serve CLI's decode_arch at full width and depth, the
-# step-6 params restored lazily; each step is one proxied decode step. From
-# the step-6 image the 128-token prompt decodes to token 0 alone in both rows
-# (the buffer's initial value, so a dropped write would not show); this one
-# decodes to more than one token
-SERVE_PROXY_PROMPT, SERVE_PROXY_KILL_AFTER = 144, 80
+# [serve:proxy]: the serve CLI's decode_arch at full width on the step-6
+# params cut to their first 2 of 24 layers (a cut for the script's time),
+# written as an image of their own and restored lazily; each step is one
+# proxied decode step. The prompt must decode to more than one token (the
+# buffer starts at token 0, so a dropped write would not show otherwise)
+SERVE_PROXY_PROMPT, SERVE_PROXY_KILL_AFTER, SERVE_PROXY_LAYERS = 144, 80, 2
 SERVE_PROXY_SPEC = {"name": "decode_arch", "arch": ARCH, "smoke": False,
                     "batch": SERVE_BATCH, "prompt_len": SERVE_PROXY_PROMPT,
-                    "gen": GEN, "device": "cuda"}
+                    "gen": GEN, "device": "cuda", "num_layers": SERVE_PROXY_LAYERS}
+
+
+def _first_layers(store: str, n: int) -> dict:
+    """The step-6 image's params on the CPU (read lazily: the optimizer
+    state stays on disk), each stacked block leaf cut to its first ``n``
+    layers."""
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.core import RestoreManager
+
+    prefix = "device/params/"
+    cpu = torch.device("cpu")
+    lazy, _ = RestoreManager(ChunkStore(store)).restore(
+        step=STEPS, lazy=True, device_for=lambda p, s: cpu if p.startswith(prefix) else None)
+    params: dict = {}
+    try:
+        for path in lazy.keys():
+            if not path.startswith(prefix):
+                continue
+            *parents, name = path[len(prefix):].split("/")
+            node = params
+            for p in parents:
+                node = node.setdefault(p, {})
+            leaf = lazy[path]
+            node[name] = (leaf[:n] if parents[:1] == ["blocks"] else leaf).clone()
+    finally:
+        lazy.close()
+    return params
 
 
 def serve_child(cfg: dict) -> int:
@@ -996,7 +1042,7 @@ def phase_serve_proxy(store: str, card: str) -> dict:
     card over the stream transport, each held bit for bit against the same
     ``decode_arch`` stepped inline in this process from the same params."""
     from repro_torch.checkpoint import ChunkStore
-    from repro_torch.core import RestoreManager
+    from repro_torch.core import ForkedCheckpointer
     from repro_torch.proxy import make_program
     from repro_torch.remote.host import ProxyHostHandle
     from repro_torch.utils.dtypes import leaf_nbytes
@@ -1009,10 +1055,16 @@ def phase_serve_proxy(store: str, card: str) -> dict:
     clean = {p: t for p, t in meta.items() if not p.startswith("params/")}
     clean_bytes = sum(leaf_nbytes(t) for t in clean.values())
     clean_chunks = sum(-(-leaf_nbytes(t) // (1 << 20)) for t in clean.values())
-    state, _ = RestoreManager(ChunkStore(store)).restore(
-        step=STEPS, device_for=lambda p, s: cuda if p.startswith("device/params/") else None)
-    dstate = prog.on_restore(prog.init_state(state["device"]["params"]))
-    del state
+    params = _first_layers(store, SERVE_PROXY_LAYERS)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip-smoke-sproxy-")
+    tmp = tmp_dir.name
+    cut_store = os.path.join(tmp, "ckpt")
+    ckpt = ForkedCheckpointer(ChunkStore(cut_store), codec="none", chunk_bytes=1 << 20,
+                              backend="thread")
+    ckpt.save_sync(STEPS, {"device": {"params": params}})
+    ckpt.close()
+    dstate = prog.on_restore(prog.init_state(params))
+    del params
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for n in range(1, steps + 1):
@@ -1026,7 +1078,8 @@ def phase_serve_proxy(store: str, card: str) -> dict:
     distinct = len({t for row in want for t in row})
     del dstate
     torch.cuda.empty_cache()
-    print(f"[serve:proxy] {card} state_bytes={prog.state_nbytes()} "
+    print(f"[serve:proxy] {card} layers={SERVE_PROXY_LAYERS} of 24 (the step-6 image's first, "
+          f"written as an image of their own) state_bytes={prog.state_nbytes()} "
           f"clean_bytes={clean_bytes} (cache + toks) steps={steps} inline_decode_s="
           f"{inline_s:.3f} inline_tok_s={steps * SERVE_BATCH / inline_s:.1f} "
           f"inline_pos={pos} distinct_tokens={distinct}", flush=True)
@@ -1034,9 +1087,10 @@ def phase_serve_proxy(store: str, card: str) -> dict:
         raise SystemExit("the inline decode gave one token throughout: the token "
                          "check could not see a misplaced or dropped write")
 
-    argv = ["--arch", ARCH, "--ckpt-dir", store, "--lazy", "--batch", str(SERVE_BATCH),
-            "--prompt-len", str(P), "--gen", str(GEN), "--device-runner", "proxy"]
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-sproxy-") as tmp:
+    argv = ["--arch", ARCH, "--num-layers", str(SERVE_PROXY_LAYERS), "--ckpt-dir", cut_store,
+            "--lazy", "--batch", str(SERVE_BATCH), "--prompt-len", str(P), "--gen", str(GEN),
+            "--device-runner", "proxy"]
+    with tmp_dir:
         local = _run_proxy_child({"role": "local", "argv": argv,
                                   "kill_after": SERVE_PROXY_KILL_AFTER,
                                   "out": os.path.join(tmp, "local.json")}, 600,
@@ -1435,8 +1489,8 @@ def phase_train_long(card: str) -> dict:
                   f"this_thread(fwd, bwd)={st['thread']}", flush=True)
         for r in out["results"]:
             print(f"[train:long] ckpt step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
-                  f"persist_ms={r.persist_s * 1e3:.1f} synced={r.chunks_synced} "
-                  f"written={r.chunks_written}", flush=True)
+                  f"persist_ms={r.persist_s * 1e3:.1f} {_fetch_split(r)} "
+                  f"synced={r.chunks_synced} written={r.chunks_written}", flush=True)
         m = out["metrics"]
         print(f"[train:long] arch={ARCH} layers={L} batch={LONG_BATCH} seq={LONG_SEQ} "
               f"remat={cfg.remat} steps={out['final_step']} wall_s={wall:.1f} "
@@ -2307,6 +2361,20 @@ def _clock(tag: str):
 CLUSTER_SPEC = dict(UVM_SPEC, num_layers=2)
 CLUSTER_PROXY_SPEC = dict(UVM_SPEC, num_layers=2)
 CLUSTER_CHUNK = 1 << 20
+# [cluster:remote]'s faults, fired by the injection engine once the first
+# round has committed, in this order: rank 1's heartbeat clock 120 s ahead
+# for 10 s (the watchdog alerts beyond 30 s), daemon ph0 SIGKILLed, a torn
+# frame at the coordinator
+CHAOS_PLAN = [
+    ("clock_skew", {"host": 1, "skew_s": 120.0, "duration_s": 10.0}),
+    ("kill_proxy_host", {"index": 0}),
+    ("torn_frame", {}),
+]
+CHAOS_MAX_SKEW_S = 30.0
+# the soak verdict's limit on a committed round's seconds: above the longest
+# round any cluster phase has recorded (the [cluster] round-4 retry at 24
+# layers, 44.7-48.8 s) and a proxy-host reschedule (9.4-13.2 s)
+CHAOS_ROUND_ENVELOPE_S = 60.0
 
 
 def _host_chunk_table(state, cb: int) -> dict:
@@ -2559,18 +2627,40 @@ def phase_cluster_proxy(card: str) -> dict:
                          f"flash, provenance, sync): {plaunches}")
 
     # [cluster:remote]: the same run with each rank's proxy a session on one
-    # of two proxy-host daemons on the card (stream transport), daemon ph0
-    # SIGKILLed after the first commit; held against [cluster:proxy]'s inline run
+    # of two proxy-host daemons on the card (stream transport); after the
+    # first commit the injection engine journals and fires a clock skew on
+    # rank 1, a SIGKILL of daemon ph0 and a torn frame at the coordinator,
+    # and the soak verdict judges the run; held against [cluster:proxy]'s
+    # inline run
+    from repro_torch.chaos.faults import CHAOS_ENV
+    from repro_torch.chaos.schedule import PlannedInjection
+    from repro_torch.chaos.soak import chaos_hook
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.journal import InjectLine
+    from repro_torch.obs.soak import verdict
+    from repro_torch.obs.watch import WatchConfig
+
     tag = "[cluster:remote]"
     with _clock("cluster:remote"), \
             tempfile.TemporaryDirectory(prefix="chip-smoke-cremote-") as tmp:
         root = os.path.join(tmp, "ckpt")
+        # the ranks inherit the sentinel dir the heartbeat's skew shim reads
+        os.environ[CHAOS_ENV] = os.path.join(tmp, "chaos")
         t0 = time.perf_counter()
-        rem = run_cluster(
-            root=root, n_hosts=2, total_steps=4, ckpt_every=2, backend="fork",
-            codec="none", chunk_bytes=CLUSTER_CHUNK, program=CLUSTER_PROXY_SPEC,
-            device="cuda", device_runner="proxy", proxy_hosts=2, kill_proxy_host=0,
-            kill_proxy_after_commits=1, deadline_s=600.0, round_timeout_s=300.0)
+        try:
+            rem = run_cluster(
+                root=root, n_hosts=2, total_steps=4, ckpt_every=2, backend="fork",
+                codec="none", chunk_bytes=CLUSTER_CHUNK, program=CLUSTER_PROXY_SPEC,
+                device="cuda", device_runner="proxy", proxy_hosts=2,
+                deadline_s=600.0, round_timeout_s=300.0,
+                obs_dir=os.path.join(tmp, "obs"),
+                watch_cfg=WatchConfig(max_clock_skew_s=CHAOS_MAX_SKEW_S),
+                chaos=chaos_hook(tmp, [PlannedInjection(0.0, kind, params)
+                                       for kind, params in CHAOS_PLAN],
+                                 chaos_dir=os.environ[CHAOS_ENV], after_commits=1))
+        finally:
+            del os.environ[CHAOS_ENV]
+            obs_trace.disable()  # the run's tracing ends with its run dir
         rwall = time.perf_counter() - t0
         _cluster_rounds(tag, card, rem)
         image, _ = RestoreManager(ChunkStore(root)).restore(step=4, device_for=on_card)
@@ -2579,6 +2669,15 @@ def phase_cluster_proxy(card: str) -> dict:
         del image
         rsteps = committed_steps(root)
         log = read_journal(rem.log_path)
+        # the verdict reads convergence from the driver's summary
+        with open(os.path.join(tmp, "soak_run.json"), "w") as f:
+            json.dump({"lockstep": rem.lockstep(),
+                       "latest_committed": rem.latest_committed}, f)
+        t_verdict = time.perf_counter()
+        card_verdict = verdict(tmp, round_envelope_s=CHAOS_ROUND_ENVELOPE_S)
+        verdict_s = time.perf_counter() - t_verdict
+        injected = [r for r in read_journal(os.path.join(tmp, "INJECT_LOG.jsonl"))
+                    if isinstance(r, InjectLine)]
     del pstate
     torch.cuda.empty_cache()
     placed: dict[int, list[str]] = {}
@@ -2592,6 +2691,8 @@ def phase_cluster_proxy(card: str) -> dict:
         e.step for e in log[alert_i:] if e.event == "round" and e.status == "committed"]
     # daemon death (first reported by a rank) to the first SYNCED of a
     # moved rank's proxy on the survivor (its ack's wall clock)
+    first_commit_t = min(e.t for e in log if e.event == "round" and e.committed)
+    killed = [i.params["name"] for i in injected if i.kind == "kill_proxy_host"]
     death_t = min(e.t for e in reported) if reported else None
     synced = [a["synced_wt"] for acks in rem.acks for h, a in acks.items()
               if h in moved and death_t is not None and a["synced_wt"] > death_t]
@@ -2606,15 +2707,32 @@ def phase_cluster_proxy(card: str) -> dict:
     restarts = {(h, r.step): a["proxy_restarts"]
                 for r, acks in zip(rem.committed, rem.acks) for h, a in acks.items()}
     print(f"{tag} {card} cluster wall_s={rwall:.1f} committed={rsteps} "
-          f"killed={rem.killed_proxy_hosts} placements={rem.proxy_placements} moved={moved} "
+          f"killed={killed} placements={rem.proxy_placements} moved={moved} "
           f"proxy_restarts per (rank, step)={restarts} death_reported_by="
           f"{[(e.worker, e.name) for e in reported]} reschedule_s="
           f"{'-' if reschedule_s is None else f'{reschedule_s:.2f}'} (death reported "
           f"-> first SYNCED on the survivor) alerts={sorted(rem.alert_kinds())} "
           f"committed_after_alert={after} lockstep={rem.lockstep()} bitwise={rsame} "
           f"provenance vs chunk_digest_np {roracle}", flush=True)
-    if rem.killed_proxy_hosts != ["ph0"] or not moved:
-        raise SystemExit(f"remote cluster: killed {rem.killed_proxy_hosts}, placements "
+    checks = card_verdict["checks"]
+    print(f"[chaos] {card} verdict={'pass' if card_verdict['pass'] else 'FAIL'} "
+          + " ".join(f"{k}={v}" for k, v in checks.items())
+          + f" injections={[(i.seq, i.kind, i.target) for i in injected]} journaled_s_after_"
+          f"first_commit_line={[round(i.t - first_commit_t, 3) for i in injected]} "
+          f"evidence={[(r['kind'], r['evidenced'], sum(map(len, r['matched'].values()))) for r in card_verdict['injections']]} "
+          f"alerts={[(a['kind'], a['host'], a['explained_by']) for a in card_verdict['alerts']]} "
+          f"round_envelope_s={CHAOS_ROUND_ENVELOPE_S} rounds_s="
+          f"{[(r.step, round(r.round_s, 2)) for r in rem.committed]} "
+          f"leak_growth={card_verdict['leak_growth']} critpath_problems="
+          f"{card_verdict['critpath_problems']} verdict_s={verdict_s:.1f}", flush=True)
+    if not card_verdict["pass"] or len(checks) != 6 or not all(checks.values()):
+        raise SystemExit(f"the chaos-driven remote cluster failed its soak verdict: {checks}")
+    if [i.kind for i in injected] != [kind for kind, _ in CHAOS_PLAN] or \
+            card_verdict["n_injections"] != len(CHAOS_PLAN):
+        raise SystemExit(f"injections journaled {[(i.kind, i.t) for i in injected]}: not "
+                         f"the plan's {[kind for kind, _ in CHAOS_PLAN]}")
+    if killed != ["ph0"] or not moved:
+        raise SystemExit(f"remote cluster: killed {killed}, placements "
                          f"{rem.proxy_placements}: no rank moved to the survivor")
     if "proxy_host_death" not in rem.alert_kinds() or not after:
         raise SystemExit(f"remote cluster: alerts {rem.alert_kinds()}, rounds committed "

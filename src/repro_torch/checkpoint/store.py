@@ -12,6 +12,7 @@ import os
 import threading
 from collections import OrderedDict
 
+from repro_torch.chaos.faults import CHAOS_ENV, check_disk_quota
 from repro_torch.checkpoint.codecs import get_codec
 from repro_torch.checkpoint.manifest import ChunkRecord, step_dir
 
@@ -61,6 +62,10 @@ class ChunkStore:
             if self._f is None:
                 self._open()
             comp = get_codec(codec_name).compress(raw)
+            if os.environ.get(CHAOS_ENV):
+                # chaos shim: an armed disk_full fault turns this append
+                # into ENOSPC mid-persist (one environment lookup otherwise)
+                check_disk_quota(self.host, len(comp), self._off)
             rec = ChunkRecord(
                 index=index, raw_len=len(raw), digest=digest,
                 codec=codec_name, file=self.relpath,

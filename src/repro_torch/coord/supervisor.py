@@ -199,6 +199,7 @@ def run_cluster(
     abort_on_critical: bool = False,
     device_capacity: str | None = None,
     persist_timeout_s: float | None = None,
+    chaos=None,
 ) -> ClusterReport:
     """One coordinated run: coordinator + N supervised rank processes.
 
@@ -214,6 +215,11 @@ def run_cluster(
     ``kill_proxy_host`` SIGKILLs daemon #i once ``kill_proxy_after_commits``
     rounds have committed — the cross-host failure drill: affected ranks
     are rescheduled onto a survivor and their API logs replayed there.
+
+    ``chaos`` (``repro_torch.chaos.soak.chaos_hook``) is called once the
+    ranks are started with the run's :class:`~repro_torch.chaos.injectors.
+    ClusterHandles` and returns a controller whose ``stop()`` runs before
+    teardown, so no fault window outlives the cluster it targets.
 
     Blocks until every rank reports FINISHED (ranks killed by injections
     are respawned and restored along the way) and returns the report.
@@ -300,6 +306,7 @@ def run_cluster(
             time.sleep(0.05)
 
     coord_thread = threading.Thread(target=drive, name="coordinator", daemon=True)
+    chaos_ctl = None
     try:
         if proxy_hosts:
             from repro_torch.remote.host import ProxyHostHandle
@@ -315,8 +322,16 @@ def run_cluster(
                 target=proxy_killer, name="proxy-killer", daemon=True
             ).start()
         sup.start()
+        if chaos is not None:
+            from repro_torch.chaos.injectors import ClusterHandles
+
+            chaos_ctl = chaos(ClusterHandles(
+                coordinator=coord, supervisor=sup, daemons=daemons, root=root,
+            ))
         sup.watch(coord.done, deadline_s=deadline_s)
     finally:
+        if chaos_ctl is not None:
+            chaos_ctl.stop()
         sup.terminate()
         for d in daemons:
             d.terminate()

@@ -39,6 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.chaos.faults import CHAOS_ENV, active as chaos_active
 from repro_torch.checkpoint.codecs import DEFAULT_CODEC
 from repro_torch.checkpoint.store import ChunkStore
 from repro_torch.coord.protocol import (
@@ -472,10 +473,16 @@ class _Heartbeat(threading.Thread):
                 extra["metrics"] = payload
             if self.ctx is not None:
                 extra["ctx"] = self.ctx
+            # wall-clock witness for the watchdog's clock_skew rule; the
+            # chaos shim skews it while a clock_skew sentinel is armed
+            wt = time.time()
+            if os.environ.get(CHAOS_ENV):
+                skew = chaos_active("clock_skew", host=self.cfg.host)
+                if skew is not None:
+                    wt += float(skew.get("skew_s", 0.0))
             try:
-                # wall-clock witness for the watchdog's clock_skew rule
                 self.conn.send(MSG_HEARTBEAT, host=self.cfg.host,
-                               step=self.step, wt=time.time(), **extra)
+                               step=self.step, wt=wt, **extra)
             except OSError:
                 # coordinator kicked us (or died): this incarnation is over
                 os._exit(1)

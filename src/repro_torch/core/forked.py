@@ -100,6 +100,9 @@ class CheckpointResult:
     digest_us: float = 0.0
     fetch_us: float = 0.0
     stall_us: float = 0.0
+    # of fetch_us: a first sync's buffer allocation and page faulting
+    alloc_us: float = 0.0
+    prefault_us: float = 0.0
     error: str | None = None
     done: threading.Event = field(default_factory=threading.Event, repr=False)
 
@@ -692,6 +695,8 @@ class ForkedCheckpointer:
                 result.sync_us = (time.perf_counter() - t_sync) * 1e6
             result.digest_us = stats.digest_us
             result.fetch_us = stats.fetch_us
+            result.alloc_us = stats.alloc_us
+            result.prefault_us = stats.prefault_us
             if now_tick is not None:
                 self._buf_tick[buf_i] = now_tick
             skeleton = build_skeleton(state)

@@ -33,6 +33,7 @@ Only dense text archs serve, as ``models.build`` decides.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -53,6 +54,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=list_archs(), required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="serve the config cut to its first N layers, widths "
+                         "kept (the image must hold N layers)")
     ap.add_argument("--ckpt-dir", default=None, help="restore params from here")
     ap.add_argument("--lazy", action="store_true", help="lazy restore w/ read-ahead")
     ap.add_argument("--batch", type=int, default=2)
@@ -130,6 +134,8 @@ def serve(argv=None) -> dict:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     model = build(cfg)
 
     t0 = time.perf_counter()
@@ -192,6 +198,8 @@ def _serve_proxy(args) -> dict:
         "batch": args.batch, "prompt_len": args.prompt_len, "gen": args.gen,
         "device": args.device,
     }
+    if args.num_layers is not None:
+        spec["num_layers"] = args.num_layers
     provider = None
     if args.proxy_endpoint:
         ep = endpoint_arg(args.proxy_endpoint)

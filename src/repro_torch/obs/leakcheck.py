@@ -10,9 +10,14 @@ N-minute run"; this helper is that check, reusable from any drill:
     # raises AssertionError naming the leaked fds / segments
 
 Snapshots are taken from ``/proc/self/fd`` (symlink targets, so the
-report names *what* leaked, not just how many) and the ``/dev/shm``
-listing. On platforms without ``/proc`` the check degrades to a no-op
-rather than a false failure.
+report names *what* leaked, not just how many) and from the ``/dev/shm``
+entries **of this run**: the reference counts the whole machine's
+``/dev/shm``, which other processes (other runs, other tests) write to at
+the same time. An entry is the run's when a process of the run — this one
+or a live descendant — maps it or holds it open, or when its name carries
+such a process's pid (the port names its own entries ``crum-<kind>-<pid>-``,
+see :func:`shm_entry_pid`). On platforms without ``/proc`` the check
+degrades to a no-op rather than a false failure.
 
 For *live* monitoring the before/after context manager is the wrong
 shape — a watchdog wants a cheap point-in-time count plus a trend over a
@@ -23,15 +28,96 @@ the SLO watchdog's leak-trend rule and long-running drills share them.
 from __future__ import annotations
 
 import os
+import re
 import time
 from collections import deque
 from typing import Callable
 
 __all__ = ["ResourceSnapshot", "LeakCheck", "sample", "watchdog_sample",
-           "PeriodicAudit"]
+           "PeriodicAudit", "run_pids", "run_shm_entries", "shm_entry_pid"]
 
 _FD_DIR = "/proc/self/fd"
+_PROC = "/proc"
 _SHM_DIR = "/dev/shm"
+# the port's own /dev/shm names: crum-<kind>-<pid>-<anything>
+_SHM_PID = re.compile(r"^crum-[a-z]+(?:-[a-z]+)*-(\d+)-")
+
+
+def shm_entry_pid(name: str) -> int | None:
+    """The creating pid a port-named ``/dev/shm`` entry carries, or None."""
+    m = _SHM_PID.match(name)
+    return int(m.group(1)) if m else None
+
+
+def run_pids() -> set[int]:
+    """This process and its live descendants (parent links in ``/proc``)."""
+    children: dict[int, list[int]] = {}
+    try:
+        entries = os.listdir(_PROC)
+    except OSError:
+        return {os.getpid()}
+    for entry in entries:
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"{_PROC}/{entry}/stat", "rb") as f:
+                stat = f.read()
+            # the name field may hold spaces and parentheses: the parent
+            # pid is the second field after its closing parenthesis
+            ppid = int(stat[stat.rindex(b")") + 2:].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue  # exited while listed
+        children.setdefault(ppid, []).append(int(entry))
+    pids, todo = set(), [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        if pid not in pids:
+            pids.add(pid)
+            todo.extend(children.get(pid, ()))
+    return pids
+
+
+def _held_shm(pid: int) -> set[str]:
+    """Top-level ``/dev/shm`` entries a process maps or holds open."""
+    prefix = _SHM_DIR + "/"
+    held: set[str] = set()
+    try:
+        with open(f"{_PROC}/{pid}/maps") as f:
+            for line in f:
+                i = line.find(prefix)
+                if i >= 0:
+                    held.add(line[i + len(prefix):].split("/", 1)[0].split(" ", 1)[0].rstrip("\n"))
+    except OSError:
+        pass
+    try:
+        fds = os.listdir(f"{_PROC}/{pid}/fd")
+    except OSError:
+        fds = []
+    for fd in fds:
+        try:
+            target = os.readlink(f"{_PROC}/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith(prefix):
+            held.add(target[len(prefix):].split("/", 1)[0].split(" ", 1)[0])
+    return held
+
+
+def run_shm_entries(pids: set[int] | None = None) -> set[str] | None:
+    """The ``/dev/shm`` entries of this run (None without ``/dev/shm``).
+
+    ``pids`` defaults to :func:`run_pids`. An entry counts when one of them
+    maps it or holds it open, or when its port name carries one of them.
+    """
+    try:
+        names = os.listdir(_SHM_DIR)
+    except OSError:
+        return None
+    pids = run_pids() if pids is None else pids
+    held: set[str] = set()
+    for pid in pids:
+        held |= _held_shm(pid)
+    return {n for n in names if n in held or shm_entry_pid(n) in pids}
 
 # fd targets the observability stack itself owns (trace shards, metric
 # snapshots, the cluster journal, live-metrics stream, merged report):
@@ -51,8 +137,9 @@ def _is_obs_fd(target: str) -> bool:
 def sample(*, exclude_obs: bool = False) -> dict:
     """Point-in-time resource counts: ``{supported, fd, shm}``.
 
-    Cheaper than :meth:`ResourceSnapshot.capture` (two listdirs, no
-    readlink per fd) — safe to call on a periodic tick. ``supported`` is
+    Cheaper than :meth:`ResourceSnapshot.capture` (no readlink per fd of
+    this process) — safe to call on a periodic tick. ``shm`` counts this
+    run's entries (:func:`run_shm_entries`), not the machine's. ``supported`` is
     False on platforms without ``/proc`` (counts are then 0, and any
     consumer should treat the audit as a no-op rather than a leak).
 
@@ -77,10 +164,7 @@ def sample(*, exclude_obs: bool = False) -> dict:
             if _is_obs_fd(target):
                 fd_obs += 1
         fd -= fd_obs
-    try:
-        shm = len(os.listdir(_SHM_DIR))
-    except OSError:
-        shm = 0
+    shm = len(run_shm_entries() or ())
     out = {"supported": True, "fd": fd, "shm": shm}
     if exclude_obs:
         out["fd_obs"] = fd_obs
@@ -149,12 +233,7 @@ class ResourceSnapshot:
                     pass  # the listdir fd itself / raced closes
         except OSError:
             fds = None
-        shm: set[str] | None = None
-        try:
-            shm = set(os.listdir(_SHM_DIR))
-        except OSError:
-            shm = None
-        return cls(fds, shm)
+        return cls(fds, run_shm_entries())
 
     @property
     def supported(self) -> bool:

@@ -43,12 +43,17 @@ from repro_torch.utils.dtypes import dtype_name, leaf_nbytes, leaf_shape
 from repro_torch.utils.tree import flatten_with_paths, leaf_bytes, unflatten_from_paths
 
 
-def default_segment_dir(prefix: str = "crum-proxy-") -> str:
-    """A fresh directory for segment files, RAM-backed when possible."""
+def default_segment_dir(prefix: str | None = None) -> str:
+    """A fresh directory for segment files, RAM-backed when possible.
+
+    The default name, ``crum-proxy-<pid>-...``, carries the creating pid, so
+    ``obs.leakcheck`` counts the directory as its run's even after the run
+    lets go of it.
+    """
     base = "/dev/shm" if os.path.isdir("/dev/shm") and os.access(
         "/dev/shm", os.W_OK
     ) else None
-    return tempfile.mkdtemp(prefix=prefix, dir=base)
+    return tempfile.mkdtemp(prefix=prefix or f"crum-proxy-{os.getpid()}-", dir=base)
 
 
 class SharedSegment:

@@ -57,6 +57,55 @@ def test_matches_jax_kernel_f32(shape):
     _close(_ours(arrs, causal=True), _jax(arrs, causal=True), TOL["float32"])
 
 
+def _set_threads(n):
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    return lambda: torch.set_num_threads(old)
+
+
+def _set_deterministic(on):
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on)
+    return lambda: torch.use_deterministic_algorithms(old)
+
+
+def _set_matmul_precision(p):
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(p)
+    return lambda: torch.set_float32_matmul_precision(old)
+
+
+def _set_jax_precision(p):
+    import jax
+
+    old = jax.config.jax_default_matmul_precision
+    jax.config.update("jax_default_matmul_precision", p)
+    return lambda: jax.config.update("jax_default_matmul_precision", old)
+
+
+# process-global settings other tests of the suite change in the same
+# worker (intra-op threads, deterministic algorithms, the fp32 matmul
+# precision whose "high" allows TF32) or that a JAX test could leave set
+@pytest.mark.parametrize("setting", [
+    (_set_threads, 1), (_set_threads, 3), (_set_deterministic, True),
+    (_set_matmul_precision, "high"), (_set_jax_precision, "bfloat16"),
+    (_set_jax_precision, "float32"),
+], ids=lambda s: f"{s[0].__name__}={s[1]}")
+def test_f32_case_is_immune_to_process_globals(setting):
+    """The f32 case's two sides are bit for bit what they are under the
+    defaults when another test leaves one of these settings changed, so
+    none of them can move it past its 2e-5 limit."""
+    arrs = _inputs(0, *SHAPES[0])
+    ours, theirs = _ours(arrs, causal=True), _jax(arrs, causal=True)
+    restore = setting[0](setting[1])
+    try:
+        np.testing.assert_array_equal(_ours(arrs, causal=True), ours)
+        np.testing.assert_array_equal(_jax(arrs, causal=True), theirs)
+    finally:
+        restore()
+    _close(ours, theirs, TOL["float32"])
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("shape", [(1, 2, 2, 128, 128, 64), (1, 14, 2, 256, 256, 64)],
                          ids=str)
