@@ -100,9 +100,11 @@ class CheckpointResult:
     digest_us: float = 0.0
     fetch_us: float = 0.0
     stall_us: float = 0.0
-    # of fetch_us: a first sync's buffer allocation and page faulting
+    # of fetch_us: a first sync's buffer allocation and page faulting (or
+    # its wait for buffers made ahead, buffers_ahead of them)
     alloc_us: float = 0.0
     prefault_us: float = 0.0
+    buffers_ahead: int = 0
     error: str | None = None
     done: threading.Event = field(default_factory=threading.Event, repr=False)
 
@@ -654,6 +656,20 @@ class ForkedCheckpointer:
         # steps whose payload an in-flight (uncommitted) delta persist still
         # references — GC must not collect them out from under the child
         self._inflight_bases: dict[int, set[int]] = {}
+        # one thread makes the first syncs' buffers ahead (prepare)
+        self._ahead_pool: cf.ThreadPoolExecutor | None = None
+
+    def prepare(self, state: Any) -> None:
+        """Make every snapshot buffer's first-sync buffers for ``state``'s
+        layout on a background thread, in the order the checkpoints will
+        take them, so a first sync's blocking is its copy and not its page
+        faults (:meth:`ShadowStateManager.prepare`). Call it once the
+        state exists, before the first checkpoint."""
+        if self._ahead_pool is None:
+            self._ahead_pool = cf.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="crum-prefault")
+        for shadow in self._buffers:
+            shadow.prepare(state, self._ahead_pool)
 
     # -- the checkpoint entry point ------------------------------------------
     def save_async(
@@ -697,6 +713,7 @@ class ForkedCheckpointer:
             result.fetch_us = stats.fetch_us
             result.alloc_us = stats.alloc_us
             result.prefault_us = stats.prefault_us
+            result.buffers_ahead = stats.buffers_ahead
             if now_tick is not None:
                 self._buf_tick[buf_i] = now_tick
             skeleton = build_skeleton(state)
@@ -841,6 +858,10 @@ class ForkedCheckpointer:
         for r in pending:
             r.done.wait()
         self.backend.close()
+        if self._ahead_pool is not None:
+            for shadow in self._buffers:
+                shadow.drop_ahead()
+            self._ahead_pool.shutdown(wait=True, cancel_futures=True)
 
     # -- synchronous baseline (the paper's "naive" strategy) -----------------------
     def save_sync(self, step: int, state: Any, *, meta: dict | None = None) -> CheckpointResult:

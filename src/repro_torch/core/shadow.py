@@ -46,6 +46,7 @@ dtype view refuses 0-d tensors.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import enum
 import mmap
 import threading
@@ -109,9 +110,12 @@ class SyncStats:
     digest_us: float = 0.0
     fetch_us: float = 0.0
     # the part of fetch_us a first sync spends allocating its buffers and
-    # faulting their pages in (the rest is the copy)
+    # faulting their pages in, or waiting for a buffer made ahead (the rest
+    # is the copy); buffers_ahead counts the streams whose buffer was made
+    # ahead (see ShadowStateManager.prepare)
     alloc_us: float = 0.0
     prefault_us: float = 0.0
+    buffers_ahead: int = 0
     # chunks whose digest the step already supplied (no boundary scan)
     chunks_prehashed: int = 0
     # which sync epoch produced this image (see begin_sync_epoch)
@@ -128,6 +132,7 @@ class SyncStats:
         self.fetch_us += other.fetch_us
         self.alloc_us += other.alloc_us
         self.prefault_us += other.prefault_us
+        self.buffers_ahead += other.buffers_ahead
         self.chunks_prehashed += other.chunks_prehashed
 
 
@@ -264,6 +269,9 @@ class ShadowStateManager:
         self._streams: dict[tuple[str, int], _ShardStream] = {}
         self._mmaps: list[mmap.mmap] = []
         self._registered = False
+        # first-sync buffers made ahead by prepare(): key -> (nbytes, future
+        # of (mmap or None, buffer))
+        self._ahead: dict[tuple[str, int], tuple[int, cf.Future]] = {}
         # pin/retire: a persisting fork child may still be reading the
         # MAP_SHARED pages of a buffer generation that register() replaces;
         # retired generations are released only once the pin count drops to 0
@@ -278,14 +286,67 @@ class ShadowStateManager:
         # image, carried through SyncStats.epoch
         self.sync_epoch = 0
 
+    def _new_buffer(self, nbytes: int) -> tuple[mmap.mmap | None, np.ndarray]:
+        if self.shared_buffers and nbytes > 0:
+            mm = mmap.mmap(-1, nbytes)  # anonymous + MAP_SHARED on POSIX
+            return mm, np.frombuffer(mm, dtype=np.uint8, count=nbytes)
+        return None, np.empty(nbytes, np.uint8)
+
     def _alloc_buffer(self, nbytes: int, key: tuple[str, int] | None = None) -> np.ndarray:
         if self.segment_factory is not None and key is not None:
             return self.segment_factory(key, nbytes)
-        if self.shared_buffers and nbytes > 0:
-            mm = mmap.mmap(-1, nbytes)  # anonymous + MAP_SHARED on POSIX
+        mm, buf = self._new_buffer(nbytes)
+        if mm is not None:
             self._mmaps.append(mm)
-            return np.frombuffer(mm, dtype=np.uint8, count=nbytes)
-        return np.empty(nbytes, np.uint8)
+        return buf
+
+    @staticmethod
+    def _fault(buf: np.ndarray) -> None:
+        # Fault every fresh page in on torch's intra-op threads: a
+        # device-to-host copy into never-touched pages faults them one at a
+        # time on the copying thread (on the H100's host, ~11 s of a 12-16 s
+        # first fetch of 4.94 GB; ~2.5 s on 8 threads, then ~0.4 s of copy)
+        torch.from_numpy(buf).zero_()
+
+    def _faulted_buffer(self, nbytes: int) -> tuple[mmap.mmap | None, np.ndarray]:
+        mm, buf = self._new_buffer(nbytes)
+        self._fault(buf)
+        return mm, buf
+
+    # -- first-sync buffers, made ahead --------------------------------------------
+    def prepare(self, state: Any, pool: cf.Executor) -> None:
+        """Make the first sync's buffers for ``state``'s layout on ``pool``,
+        off the blocking path: allocated and faulted in, leaf by leaf in
+        the state's order. The first sync takes each one whose stream has
+        the same size: a buffer being faulted is waited for, one not yet
+        started is made by the sync itself. A no-op once this manager has
+        synced, and for segment buffers (their factory maps files)."""
+        if self._registered or self._ahead or self.segment_factory is not None:
+            return
+        for path, leaf in flatten_with_paths(state)[0].items():
+            for ordinal, _start, _stop, data in _owned_host_shards(leaf):
+                nbytes = leaf_nbytes(data)
+                if nbytes > 0:
+                    self._ahead[(path, ordinal)] = (
+                        nbytes, pool.submit(self._faulted_buffer, nbytes))
+
+    def _take_ahead(self, stream: "_ShardStream") -> cf.Future | None:
+        """The stream's buffer made ahead (a future of (mmap, buffer)), or
+        None: none was, its size differs, or it had not started (then it is
+        cancelled and the caller makes it)."""
+        ahead = self._ahead.pop((stream.path, stream.shard_ordinal), None)
+        if ahead is None:
+            return None
+        nbytes, fut = ahead
+        if fut.cancel() or nbytes != stream.nbytes:
+            return None  # a started one of the wrong size is dropped when done
+        return fut
+
+    def drop_ahead(self) -> None:
+        """Cancel and release the buffers made ahead that no sync took."""
+        ahead, self._ahead = self._ahead, {}
+        for _nbytes, fut in ahead.values():
+            fut.cancel()
 
     # -- buffer generation pinning ------------------------------------------------
     def pin(self) -> None:
@@ -463,6 +524,8 @@ class ShadowStateManager:
                 stats.merge(self._sync_stream(
                     self._streams[key], data, digests.get(key), known.get(key)))
             stats.leaves += 1
+        if self._ahead:
+            self.drop_ahead()  # made for a layout this state does not have
         if tr is not None:
             tr.complete("shadow.sync", t0, epoch=stats.epoch,
                         chunks_fetched=stats.chunks_fetched,
@@ -515,17 +578,19 @@ class ShadowStateManager:
             stream.precise = False
             t0 = time.perf_counter()
             with self.timings.measure("shadow/fetch"):
-                stream.buffer = self._alloc_buffer(
-                    stream.nbytes, (stream.path, stream.shard_ordinal)
-                )
+                ahead = self._take_ahead(stream)
+                if ahead is None:
+                    stream.buffer = self._alloc_buffer(
+                        stream.nbytes, (stream.path, stream.shard_ordinal)
+                    )
                 t_alloc = time.perf_counter()
-                if self.segment_factory is None:
-                    # Fault every fresh page in on torch's intra-op threads:
-                    # a device-to-host copy into never-touched pages faults
-                    # them one at a time on the copying thread (on the H100's
-                    # host, ~11 s of a 12-16 s first fetch of 4.94 GB; ~2.5
-                    # s on 8 threads, then ~0.4 s of copy)
-                    torch.from_numpy(stream.buffer).zero_()
+                if ahead is not None:
+                    mm, stream.buffer = ahead.result()  # waits while faulting
+                    if mm is not None:
+                        self._mmaps.append(mm)
+                    stats.buffers_ahead = 1
+                elif self.segment_factory is None:
+                    self._fault(stream.buffer)
                 t_fault = time.perf_counter()
                 _copy_bytes(stream.buffer, data)
                 stream.states = [ChunkState.CLEAN] * stream.n_chunks

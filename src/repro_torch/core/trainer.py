@@ -228,6 +228,7 @@ class CheckpointedTrainer:
         managed = self.device_capacity_bytes is not None
         if managed:
             self._ensure_space(state["device"])
+        self.checkpointer.prepare(state)
         step = start_step
         tr = obs_trace.get()
         for _ in range(num_steps):

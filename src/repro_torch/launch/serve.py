@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ChunkStore
+from repro_torch.checkpoint.manifest import committed_steps, load_manifest
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core import RestoreManager
 from repro_torch.launch.train import resolve_device
@@ -54,9 +55,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=list_archs(), required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--num-layers", type=int, default=None,
-                    help="serve the config cut to its first N layers, widths "
-                         "kept (the image must hold N layers)")
     ap.add_argument("--ckpt-dir", default=None, help="restore params from here")
     ap.add_argument("--lazy", action="store_true", help="lazy restore w/ read-ahead")
     ap.add_argument("--batch", type=int, default=2)
@@ -75,6 +73,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     return ap.parse_args(argv)
+
+
+def _image_layers(ckpt_dir: str | None) -> int | None:
+    """The depth of the params in the newest committed image under
+    ``ckpt_dir``: the leading dimension of its stacked block leaves (None
+    without an image or blocks). An image cut to its first layers, widths
+    kept, serves at its own depth."""
+    steps = committed_steps(ckpt_dir) if ckpt_dir else []
+    if not steps:
+        return None
+    manifest = load_manifest(ckpt_dir, max(steps))
+    for path, leaf in manifest.leaves.items():
+        if path.startswith(_PARAMS + "blocks/"):
+            return int(leaf.shape[0])
+    return None
 
 
 def _nest(flat: dict) -> dict:
@@ -134,8 +147,9 @@ def serve(argv=None) -> dict:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.num_layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+    layers = _image_layers(args.ckpt_dir)
+    if layers is not None and layers != cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build(cfg)
 
     t0 = time.perf_counter()
@@ -198,8 +212,9 @@ def _serve_proxy(args) -> dict:
         "batch": args.batch, "prompt_len": args.prompt_len, "gen": args.gen,
         "device": args.device,
     }
-    if args.num_layers is not None:
-        spec["num_layers"] = args.num_layers
+    layers = _image_layers(args.ckpt_dir)
+    if layers is not None and layers != get_config(args.arch, smoke=args.smoke).num_layers:
+        spec["num_layers"] = layers
     provider = None
     if args.proxy_endpoint:
         ep = endpoint_arg(args.proxy_endpoint)

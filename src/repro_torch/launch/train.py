@@ -212,6 +212,7 @@ def train(argv=None) -> dict:
         if args.device_capacity is not None:
             return _run_managed(args, trainer, run, state, start, data, preempt)
 
+        trainer.checkpointer.prepare(state)
         tr = obs_trace.get()
         step = start
         metrics = {}

@@ -14,10 +14,14 @@ report names *what* leaked, not just how many) and from the ``/dev/shm``
 entries **of this run**: the reference counts the whole machine's
 ``/dev/shm``, which other processes (other runs, other tests) write to at
 the same time. An entry is the run's when a process of the run — this one
-or a live descendant — maps it or holds it open, or when its name carries
-such a process's pid (the port names its own entries ``crum-<kind>-<pid>-``,
-see :func:`shm_entry_pid`). On platforms without ``/proc`` the check
-degrades to a no-op rather than a false failure.
+or a descendant — maps it or holds it open, or when its name carries such a
+process's pid (the port names its own entries
+``crum-<kind>-<pid>-<ancestors>-``, see :func:`shm_entry_lineage`). A
+process killed mid-run leaves its entries behind, and they stay the run's:
+every capture remembers the pids it saw in the run and the entries it
+counted, and a name's ancestors reach back to the live part of the run even
+when its creator was never seen alive. On platforms without ``/proc`` the
+check degrades to a no-op rather than a false failure.
 
 For *live* monitoring the before/after context manager is the wrong
 shape — a watchdog wants a cheap point-in-time count plus a trend over a
@@ -34,47 +38,109 @@ from collections import deque
 from typing import Callable
 
 __all__ = ["ResourceSnapshot", "LeakCheck", "sample", "watchdog_sample",
-           "PeriodicAudit", "run_pids", "run_shm_entries", "shm_entry_pid"]
+           "PeriodicAudit", "run_pids", "run_shm_entries",
+           "shm_entry_lineage", "shm_name_prefix"]
 
 _FD_DIR = "/proc/self/fd"
 _PROC = "/proc"
 _SHM_DIR = "/dev/shm"
-# the port's own /dev/shm names: crum-<kind>-<pid>-<anything>
-_SHM_PID = re.compile(r"^crum-[a-z]+(?:-[a-z]+)*-(\d+)-")
+# the port's own /dev/shm names: crum-<kind>-<pid>-[<ancestors>-]<anything>,
+# the ancestors being the creator's parent, grandparent, ... joined by dots
+_SHM_PID = re.compile(r"^crum-[a-z]+(?:-[a-z]+)*-(\d+)-(?:(\d+(?:\.\d+)*)-)?")
+_LINEAGE_DEPTH = 8  # ancestors a name carries: deeper than any run's tree
+
+# what earlier captures of this process saw of its run: the pids, each with
+# its start time (a killed rank's or proxy's pid is no longer live, and may
+# be reused by a stranger), and the entries they counted (a dead process's
+# unnamed entry is no longer held)
+_seen_pids: dict[int, int] = {}
+_seen_shm: set[str] = set()
 
 
-def shm_entry_pid(name: str) -> int | None:
-    """The creating pid a port-named ``/dev/shm`` entry carries, or None."""
+def _forget() -> None:
+    """A forked child is a run of its own: it starts with no memory."""
+    global _seen_shm
+    _seen_pids.clear()
+    _seen_shm = set()
+
+
+if hasattr(os, "register_at_fork"):
+    os.register_at_fork(after_in_child=_forget)
+
+
+def shm_entry_lineage(name: str) -> tuple[int, ...]:
+    """The creating pid and the ancestors a port name carries, nearest
+    first; empty for a name that is not the port's."""
     m = _SHM_PID.match(name)
-    return int(m.group(1)) if m else None
+    if not m:
+        return ()
+    return (int(m.group(1)),) + tuple(int(p) for p in (m.group(2) or "").split(".") if p)
+
+
+def _stat(pid: int) -> tuple[int, int] | None:
+    """A live process's (parent pid, start time); None once it exited."""
+    try:
+        with open(f"{_PROC}/{pid}/stat", "rb") as f:
+            stat = f.read()
+        # the name field may hold spaces and parentheses: the fields after
+        # its closing parenthesis start with the state, then the parent pid;
+        # the start time is field 22 of the whole line
+        fields = stat[stat.rindex(b")") + 2:].split()
+        return int(fields[1]), int(fields[19])
+    except (OSError, ValueError, IndexError):
+        return None  # exited, or no /proc
+
+
+def shm_name_prefix(kind: str) -> str:
+    """``crum-<kind>-<pid>-<ancestors>-``: a ``/dev/shm`` name prefix that
+    :func:`run_shm_entries` attributes to any run this process is part of,
+    even after this process and its parent are gone."""
+    lineage, pid = [], os.getppid()
+    while pid > 1 and len(lineage) < _LINEAGE_DEPTH:
+        lineage.append(str(pid))
+        pid = (_stat(pid) or (0, 0))[0]
+    tail = ".".join(lineage) + "-" if lineage else ""
+    return f"crum-{kind}-{os.getpid()}-{tail}"
+
+
+def _run_tree() -> dict[int, int]:
+    """This process and its live descendants, each with its start time."""
+    children: dict[int, list[int]] = {}
+    starts: dict[int, int] = {}
+    try:
+        entries = os.listdir(_PROC)
+    except OSError:
+        return {os.getpid(): 0}
+    for entry in entries:
+        if not entry.isdigit():
+            continue
+        st = _stat(int(entry))
+        if st is not None:
+            children.setdefault(st[0], []).append(int(entry))
+            starts[int(entry)] = st[1]
+    tree: dict[int, int] = {}
+    todo = [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        if pid not in tree:
+            tree[pid] = starts.get(pid, 0)
+            todo.extend(children.get(pid, ()))
+    return tree
 
 
 def run_pids() -> set[int]:
     """This process and its live descendants (parent links in ``/proc``)."""
-    children: dict[int, list[int]] = {}
-    try:
-        entries = os.listdir(_PROC)
-    except OSError:
-        return {os.getpid()}
-    for entry in entries:
-        if not entry.isdigit():
-            continue
-        try:
-            with open(f"{_PROC}/{entry}/stat", "rb") as f:
-                stat = f.read()
-            # the name field may hold spaces and parentheses: the parent
-            # pid is the second field after its closing parenthesis
-            ppid = int(stat[stat.rindex(b")") + 2:].split()[1])
-        except (OSError, ValueError, IndexError):
-            continue  # exited while listed
-        children.setdefault(ppid, []).append(int(entry))
-    pids, todo = set(), [os.getpid()]
-    while todo:
-        pid = todo.pop()
-        if pid not in pids:
-            pids.add(pid)
-            todo.extend(children.get(pid, ()))
-    return pids
+    return set(_run_tree())
+
+
+def _seen(pid: int) -> bool:
+    """Whether ``pid`` is a process an earlier capture saw in the run: dead
+    now, or alive since the same start (not a stranger reusing the pid)."""
+    start = _seen_pids.get(pid)
+    if start is None:
+        return False
+    st = _stat(pid)
+    return st is None or st[1] == start
 
 
 def _held_shm(pid: int) -> set[str]:
@@ -106,18 +172,34 @@ def _held_shm(pid: int) -> set[str]:
 def run_shm_entries(pids: set[int] | None = None) -> set[str] | None:
     """The ``/dev/shm`` entries of this run (None without ``/dev/shm``).
 
-    ``pids`` defaults to :func:`run_pids`. An entry counts when one of them
-    maps it or holds it open, or when its port name carries one of them.
+    An entry counts when one of ``pids`` maps it or holds it open, or when
+    its port name's creator or one of its ancestors is one of them. By
+    default ``pids`` is every pid any capture of this process has seen in
+    its run (:func:`run_pids`, dead ones included), and an entry an earlier
+    capture counted counts for as long as it exists; an explicit ``pids``
+    is taken as it is, with no memory.
     """
+    global _seen_shm
     try:
         names = os.listdir(_SHM_DIR)
     except OSError:
         return None
-    pids = run_pids() if pids is None else pids
+    remember = pids is None
+    if remember:
+        tree = _run_tree()
+        _seen_pids.update(tree)
+        live, ours = set(tree), _seen
+    else:
+        live, ours = pids, pids.__contains__
     held: set[str] = set()
-    for pid in pids:
+    for pid in live:
         held |= _held_shm(pid)
-    return {n for n in names if n in held or shm_entry_pid(n) in pids}
+    mine = {n for n in names if n in held
+            or any(ours(p) for p in shm_entry_lineage(n))
+            or (remember and n in _seen_shm)}
+    if remember:
+        _seen_shm = set(mine)  # entries since removed drop out
+    return mine
 
 # fd targets the observability stack itself owns (trace shards, metric
 # snapshots, the cluster journal, live-metrics stream, merged report):

@@ -39,6 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.obs.leakcheck import shm_name_prefix
 from repro_torch.utils.dtypes import dtype_name, leaf_nbytes, leaf_shape
 from repro_torch.utils.tree import flatten_with_paths, leaf_bytes, unflatten_from_paths
 
@@ -46,14 +47,15 @@ from repro_torch.utils.tree import flatten_with_paths, leaf_bytes, unflatten_fro
 def default_segment_dir(prefix: str | None = None) -> str:
     """A fresh directory for segment files, RAM-backed when possible.
 
-    The default name, ``crum-proxy-<pid>-...``, carries the creating pid, so
-    ``obs.leakcheck`` counts the directory as its run's even after the run
-    lets go of it.
+    The default name, ``crum-proxy-<pid>-<ancestors>-...``, carries the
+    creating pid and its ancestors, so ``obs.leakcheck`` counts the
+    directory as its run's even after the run lets go of it and its creator
+    is killed.
     """
     base = "/dev/shm" if os.path.isdir("/dev/shm") and os.access(
         "/dev/shm", os.W_OK
     ) else None
-    return tempfile.mkdtemp(prefix=prefix or f"crum-proxy-{os.getpid()}-", dir=base)
+    return tempfile.mkdtemp(prefix=prefix or shm_name_prefix("proxy"), dir=base)
 
 
 class SharedSegment:

@@ -1,8 +1,9 @@
-"""PyTorch port: the serve CLI's ``--num-layers`` (a depth cut, widths kept).
+"""PyTorch port: the serve CLI serves an image cut in depth (widths kept).
 
-An image holding the first layer of a smoke model's params is served with
-``--num-layers 1`` inline and through a local proxy: both give the tokens
-that ``decode_arch`` with ``num_layers=1`` steps to from the same params.
+An image holding the first layer of a smoke model's params is served inline
+and through a local proxy: the CLI takes the depth from the image's stacked
+block leaves, and both give the tokens that ``decode_arch`` with
+``num_layers=1`` steps to from the same params.
 """
 import numpy as np
 import pytest
@@ -37,7 +38,13 @@ def cut_image(tmp_path_factory):
 def test_cut_serves_the_programs_tokens(cut_image, runner):
     store, want = cut_image
     out = serve.serve(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
-                       "--num-layers", "1", "--ckpt-dir", store, "--lazy",
+                       "--ckpt-dir", store, "--lazy",
                        "--batch", "2", "--prompt-len", str(P), "--gen", str(G)] + runner)
     np.testing.assert_array_equal(np.asarray(out["tokens"]), want)
+
+
+def test_image_layers_reads_the_images_depth(cut_image, tmp_path):
+    assert serve._image_layers(cut_image[0]) == 1
+    assert serve._image_layers(str(tmp_path)) is None
+    assert serve._image_layers(None) is None
 

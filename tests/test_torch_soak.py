@@ -211,9 +211,11 @@ def test_inject_log_and_scorecard_cross_package(tmp_path, monkeypatch):
     torn-frame soak by the port's driver, engine and cluster and one by the
     reference's are each judged by both verdicts to the same scorecard.
     The port's run passes every check. The reference's passes every check
-    but, possibly, ``leaks_flat``: its coordinator's /dev/shm series counts
-    the machine's entries, which tests running beside it add to (the
-    port's counts its own run's: ``tests/test_torch_leakcheck.py``)."""
+    but, possibly, ``leaks_flat`` and, through its watchdog's
+    ``shm_leak_trend`` alert, ``no_unexplained_alerts``: its coordinator's
+    /dev/shm series counts the machine's entries, which tests running
+    beside it add to (the port's counts its own run's:
+    ``tests/test_torch_leakcheck.py``)."""
     from repro.chaos.soak import main as ref_soak
     from repro_torch.chaos.soak import main as soak
 
@@ -238,6 +240,10 @@ def test_inject_log_and_scorecard_cross_package(tmp_path, monkeypatch):
         with open(os.path.join(run_dir, "soak_run.json")) as f:
             assert json.load(f)["schema"] == "crum-soak-run/1"
     assert docs["port"]["pass"] and all(docs["port"]["checks"].values())
-    ref_checks = dict(docs["reference"]["checks"], leaks_flat=True)
-    assert all(ref_checks.values()), docs["reference"]["checks"]
+    ref = docs["reference"]
+    machine_shm = [a for a in ref["alerts"]
+                   if a["explained_by"] is None and a["kind"] == "shm_leak_trend"]
+    ref_checks = dict(ref["checks"], leaks_flat=True, no_unexplained_alerts=all(
+        a["explained_by"] is not None for a in ref["alerts"] if a not in machine_shm))
+    assert all(ref_checks.values()), (ref["checks"], ref["alerts"])
     assert docs["port"]["n_injections"] == docs["reference"]["n_injections"] == 1

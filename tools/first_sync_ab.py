@@ -18,8 +18,8 @@ import sys
 import tempfile
 import time
 
-KEEP = ("[leg]", "[ckpt]", "[main]", "[train:long] ckpt", "[train:long] wall",
-        "[train:long] step-4", "NVIDIA", "Traceback", "Error", "SystemExit")
+KEEP = ("[leg]", "[ckpt]", "[main]", "[train] step", "[train:long]", "NVIDIA",
+        "Traceback", "Error", "SystemExit")
 
 
 def leg(tree: str) -> int:
