@@ -207,16 +207,29 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    to the moved rank's first SYNCED on the survivor);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
-Every phase ends with a ``[<phase>] wall_s=...`` line. It exits nonzero
+Order and overlap: 1 to 4, 5's ``[serve]``, 6 and ``[train:long]`` run one
+after another with the card to themselves, so the kernels' times are
+taken alone. Then 7 and 9 run in a second process of this script
+(``--lane``, its output printed when it ends) while this one runs
+``[serve:proxy]`` and 8: the two lanes share no state, each path counts
+its launches in its own processes, and their wall times and step times
+are taken beside the other lane's work. The lane must end with 0 within
+``SCRIPT_BUDGET_S`` of the script's start; on any failure it is stopped,
+with every process it started.
+
+Every phase ends with a ``[<phase>] wall_s=...`` line, and its start and
+end also go to standard error with the time of day. It exits nonzero
 without a result when no CUDA device is available.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -291,6 +304,12 @@ def phase_card() -> str:
     print(f"[card] torch={torch.__version__} cuda={torch.version.cuda} "
           f"name={torch.cuda.get_device_name(0)} "
           f"count={torch.cuda.device_count()}", flush=True)
+    mem = {}
+    with contextlib.suppress(OSError), open("/proc/meminfo") as f:
+        mem = {k: int(v.split()[0]) * 1024 for k, v in (line.split(":", 1) for line in f)}
+    print(f"[card] host cpus={os.cpu_count()} mem_total={mem.get('MemTotal')} "
+          f"mem_available={mem.get('MemAvailable')} tmp={tempfile.gettempdir()} "
+          f"tmp_free={shutil.disk_usage(tempfile.gettempdir()).free}", flush=True)
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import chunk_digest, flash_attention
@@ -1038,33 +1057,40 @@ def serve_child(cfg: dict) -> int:
     return 0
 
 
-def phase_serve_proxy(store: str, card: str) -> dict:
-    """The serve CLI through a device proxy (``[serve:proxy]``): a local
-    segment proxy SIGKILLed once mid-decode, then a proxy-host daemon on the
-    card over the stream transport, each held bit for bit against the same
-    ``decode_arch`` stepped inline in this process from the same params."""
+def _serve_image(store: str, cut_store: str) -> dict:
+    """``[serve:proxy]``'s image: the step-6 params cut to their first
+    ``SERVE_PROXY_LAYERS`` layers, written to ``cut_store`` by a
+    ``save_sync``; returns those params (on the CPU)."""
     from repro_torch.checkpoint import ChunkStore
     from repro_torch.core import ForkedCheckpointer
+
+    params = _first_layers(store, SERVE_PROXY_LAYERS)
+    ckpt = ForkedCheckpointer(ChunkStore(cut_store), codec="none", chunk_bytes=1 << 20,
+                              backend="thread")
+    ckpt.save_sync(STEPS, {"device": {"params": params}})
+    ckpt.close()
+    return params
+
+
+def phase_serve_proxy(cut_store: str, params: dict, card: str) -> dict:
+    """The serve CLI through a device proxy (``[serve:proxy]``) on the image
+    ``_serve_image`` wrote: a local segment proxy SIGKILLed once mid-decode,
+    then a proxy-host daemon on the card over the stream transport, each
+    held bit for bit against the same ``decode_arch`` stepped inline in this
+    process from the same params."""
     from repro_torch.proxy import make_program
     from repro_torch.remote.host import ProxyHostHandle
     from repro_torch.utils.dtypes import leaf_nbytes
     from repro_torch.utils.tree import flatten_with_paths, tree_digest
 
-    cuda = torch.device("cuda", torch.cuda.current_device())
     prog = make_program(SERVE_PROXY_SPEC)
     P, steps = SERVE_PROXY_PROMPT, SERVE_PROXY_PROMPT + GEN - 1
     meta = flatten_with_paths(prog.meta_state())[0]
     clean = {p: t for p, t in meta.items() if not p.startswith("params/")}
     clean_bytes = sum(leaf_nbytes(t) for t in clean.values())
     clean_chunks = sum(-(-leaf_nbytes(t) // (1 << 20)) for t in clean.values())
-    params = _first_layers(store, SERVE_PROXY_LAYERS)
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip-smoke-sproxy-")
     tmp = tmp_dir.name
-    cut_store = os.path.join(tmp, "ckpt")
-    ckpt = ForkedCheckpointer(ChunkStore(cut_store), codec="none", chunk_bytes=1 << 20,
-                              backend="thread")
-    ckpt.save_sync(STEPS, {"device": {"params": params}})
-    ckpt.close()
     dstate = prog.on_restore(prog.init_state(params))
     del params
     torch.cuda.synchronize()
@@ -2352,10 +2378,16 @@ def phase_uvm(card: str, unmanaged6) -> dict:
 
 @contextlib.contextmanager
 def _clock(tag: str):
-    """The phase's wall-clock line, printed when it ends."""
+    """The phase's wall-clock line, printed when it ends; its start and end
+    also go to standard error with the time of day, so that a run cut off
+    from outside still shows which phase it was in."""
     t0 = time.perf_counter()
+    print(f"{time.strftime('%H:%M:%S')} pid={os.getpid()} [{tag}] started",
+          file=sys.stderr, flush=True)
     yield
-    print(f"[{tag}] wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    line = f"[{tag}] wall_s={time.perf_counter() - t0:.1f}"
+    print(line, flush=True)
+    print(f"{time.strftime('%H:%M:%S')} pid={os.getpid()} {line}", file=sys.stderr, flush=True)
 
 
 # [cluster] and [cluster:proxy] train 2 of the train program's 24 layers
@@ -2761,12 +2793,77 @@ def phase_cluster_proxy(card: str) -> dict:
         "flash_attention": sum(f for _, f, _, _ in rlaunches.values())}}
 
 
+def lane_child(cfg: dict) -> int:
+    """``[proxy]`` and the cluster phases, in a process of their own that
+    the script runs beside its ``[serve:proxy]`` and ``[uvm]``: each path
+    counts its launches where it runs (this process, its proxies, its
+    ranks), none shares state with the other lane, and the card holds
+    both. Writes each path's launches to ``cfg["out"]`` as JSON."""
+    import signal
+
+    # SIGTERM from the script unwinds this process, so that each phase's
+    # ``finally`` stops the processes it started
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    card = cfg["card"]
+    with _clock("proxy"):
+        proxied = phase_proxy(card)
+    with _clock("cluster"):
+        clustered = {"launches": phase_cluster(card)}
+        clustered.update(phase_cluster_proxy(card))
+    with open(cfg["out"], "w") as f:
+        json.dump({"proxy": proxied["launches"], "cluster": clustered["launches"],
+                   "cluster_proxy": clustered["launches_proxy"],
+                   "cluster_remote": clustered["launches_remote"]}, f)
+    return 0
+
+
+# the script's own limit on its run, inside the 1,200 s it is given: the
+# lane's wait ends here
+SCRIPT_BUDGET_S = 1150.0
+
+
+def _lane_result(lane, log_path: str, out_path: str, t_script: float) -> dict:
+    """Waits for the lane (until ``SCRIPT_BUDGET_S`` into the script),
+    prints its standard output, and fails unless it ended with 0."""
+    try:
+        lane.wait(timeout=max(SCRIPT_BUDGET_S - (time.perf_counter() - t_script), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    with open(log_path) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    if lane.returncode is None:
+        raise SystemExit(f"the [proxy]/[cluster] lane passed {SCRIPT_BUDGET_S:.0f} s "
+                         f"into the script")
+    if lane.returncode != 0:
+        raise SystemExit(f"the [proxy]/[cluster] lane failed ({lane.returncode})")
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def _stop_lane(lane) -> None:
+    """Ends the lane and everything it started (its own process group):
+    SIGTERM first, so that its phases stop their processes, then SIGKILL."""
+    import signal
+
+    if lane.poll() is None:
+        lane.terminate()
+        try:
+            lane.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(lane.pid, signal.SIGKILL)
+    lane.wait()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--codec", default="none",
                     help="checkpoint codec of the main path (default: none)")
     ap.add_argument("--proxy-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--lane", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.proxy_child is not None:
         return proxy_child(json.loads(args.proxy_child))
@@ -2780,6 +2877,8 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.lane is not None:
+        return lane_child(json.loads(args.lane))
     t_script = time.perf_counter()
     with _clock("card"):
         card = phase_card()
@@ -2798,43 +2897,58 @@ def main() -> int:
         del final_state
         with _clock("serve"):
             served = phase_serve(store)
-        with _clock("serve:proxy"):
-            served_proxy = phase_serve_proxy(store, card)
-    with _clock("timing"):
-        rows = [phase_timing(device_state, launches)]
-    unmanaged6 = _cpu_tree(device_state)  # the [uvm] phase's reference
-    del device_state
-    with _clock("timing flash"):
-        rows.append(phase_flash_timing(served["launches"]))
-    with _clock("train:long"):
-        long_run = phase_train_long(card)
-    with _clock("timing flash-bwd"):
-        rows.append(phase_flash_bwd_timing(long_run["launches"]["flash_attention_bwd"]))
-    for row in rows:  # each kernel's launches in the [train:long] CLI run
-        row["launches_train_long"] = long_run["launches"][row["name"]]
-    with _clock("proxy"):
-        proxied = phase_proxy(card)
+        cut_store = os.path.join(tmp, "serve-cut")
+        with _clock("serve:proxy image"):
+            serve_params = _serve_image(store, cut_store)
+        shutil.rmtree(store)  # 3 images of 4.94 GB; the cut image stays
+        with _clock("timing"):
+            rows = [phase_timing(device_state, launches)]
+        unmanaged6 = _cpu_tree(device_state)  # the [uvm] phase's reference
+        del device_state
+        with _clock("timing flash"):
+            rows.append(phase_flash_timing(served["launches"]))
+        with _clock("train:long"):
+            long_run = phase_train_long(card)
+        with _clock("timing flash-bwd"):
+            rows.append(phase_flash_bwd_timing(long_run["launches"]["flash_attention_bwd"]))
+        for row in rows:  # each kernel's launches in the [train:long] CLI run
+            row["launches_train_long"] = long_run["launches"][row["name"]]
+        gc.collect()
+        torch.cuda.empty_cache()  # the card's memory for both lanes
+        # [proxy] and the cluster phases run in a second process of this
+        # script (its output printed when it ends), [serve:proxy] and [uvm]
+        # here: the kernels' times above ran with the card to themselves
+        lane_out, lane_log = os.path.join(tmp, "lane.json"), os.path.join(tmp, "lane.log")
+        with open(lane_log, "w") as log:
+            lane = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--lane",
+                 json.dumps({"card": card, "out": lane_out})],
+                stdout=log, start_new_session=True)
+        try:
+            with _clock("serve:proxy"):
+                served_proxy = phase_serve_proxy(cut_store, serve_params, card)
+            del serve_params
+            with _clock("uvm"):
+                uvm = phase_uvm(card, unmanaged6)
+            laned = _lane_result(lane, lane_log, lane_out, t_script)
+        finally:
+            _stop_lane(lane)
     # the proxy path's own count: the fused digest's launches in the proxy
     # processes, from their SYNCED frames (one per proxied step)
-    rows[0]["launches_proxy"] = proxied["launches"]
-    with _clock("uvm"):
-        uvm = phase_uvm(card, unmanaged6)
+    rows[0]["launches_proxy"] = laned["proxy"]
     # each kernel's launches on the managed paths; a path counted in other
     # processes (proxies, ranks) reports the digest and the forward only, and
     # runs seq 512, below the attention kernels' threshold: null there
     for row in rows:
         row["launches_uvm_inline"] = uvm["launches_inline"][row["name"]]
         row["launches_uvm_proxy"] = uvm["launches_proxy"].get(row["name"])
-    with _clock("cluster"):
-        clustered = {"launches": phase_cluster(card)}
-        clustered.update(phase_cluster_proxy(card))
     # the cluster paths' own counts: the ranks' (and their proxies')
     # launches, counted in their processes and sent in their acks
     for row in rows:
         row["launches_serve_proxy"] = served_proxy["launches"].get(row["name"])
-        row["launches_cluster"] = clustered["launches"].get(row["name"])
-        row["launches_cluster_proxy"] = clustered["launches_proxy"].get(row["name"])
-        row["launches_cluster_remote"] = clustered["launches_remote"].get(row["name"])
+        row["launches_cluster"] = laned["cluster"].get(row["name"])
+        row["launches_cluster_proxy"] = laned["cluster_proxy"].get(row["name"])
+        row["launches_cluster_remote"] = laned["cluster_remote"].get(row["name"])
     print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
