@@ -84,11 +84,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    kernel called once per leaf, ``per_leaf_ms``; ``flash_attention``: one
    layer of the prefill), its bound, the plain version's time and, for
    attention, ``scaled_dot_product_attention``'s (the kernel's ratio to it
-   and its share of the bound on the ``[timing] flash`` line), printed as
+   and its share of the bound on the ``[timing] flash`` line; a second
+   line times one layer of ``[moe]``'s prefill, q = k = v (2, 16, 8192,
+   128), the row's ``hd128``), printed as
    one ``{"kernels": [...]}`` JSON line, printed at the end with each
    kernel's launches on every later path too (``launches_train_long``,
    ``launches_proxy``, ``_uvm_inline``, ``_uvm_proxy``, ``_serve_proxy``,
-   ``_cluster``, ``_cluster_proxy``, ``_cluster_remote``: counted where
+   ``_cluster``, ``_cluster_proxy``, ``_cluster_remote``, ``_moe``: counted where
    they ran; the backward's are null on paths counted in other processes,
    which report the digest and the forward only, at seq 512);
    ``[train:long]``: the train CLI on qwen2-0.5b at full width and depth,
@@ -157,7 +159,28 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    step 3 is issued: one restart, ``paging`` in every SYNCED, one digest
    launch per step, no ``/dev/nvidia-uvm`` in the application, and its
    step-4 image bitwise equal to the same program run 4 steps inline
-   through a managed trainer;
+   through a managed trainer. ``[moe]``: the MoE family on moonshot-v1-
+   16b-a3b at full width (d_model 2048, 16 heads x 128, 64 experts top-6,
+   d_ff 1408, vocab 163,840, capacity 1.25, bf16 with the f32 router), cut
+   to 1 of its 48 layers for the script's time (9.06 GB of state under
+   AdamW): the train CLI at batch 4, seq 512, the config's 2 microbatches
+   and ``remat="dots"``, 6 steps, fork checkpoints at 2, 4 and 6, codec
+   none (per step its ms, peak GB, loss, aux, CE and dropped-slot share;
+   per checkpoint blocking, persist, digest ms and ``chunk_digest``
+   launches: 0 at the two first syncs, one grouped launch at 6; no
+   attention kernel at seq 512); the step-6 image's digests the run's
+   state's, the grouped digest over the whole state bitwise equal to
+   ``chunk_digests_plain`` leaf by leaf, the step-4 image run to 6 bitwise
+   equal to it; the serve CLI
+   on the step-6 image at its depth (lazy, batch 2, 8,192-token prompt,
+   32 greedy tokens; one ``wgmma`` flash launch per layer at head dim 128;
+   eager the same bits). A forward drops slots over capacity and a decode
+   step never does, so the served logits are held, not to a teacher-forced
+   forward, but to the same prefill and decode in the f32 upcast of the
+   params, within the bf16 forward's distance from the f32 forward over
+   the prompt; the prefill's last logits must equal the forward over the
+   prompt (the same routing groups) bit for bit, and the forward's dropped
+   slots are printed. Its two images (18 GB) go when it ends;
 9. the cluster (``[cluster]``): ``repro_torch.coord.run_cluster`` with 2
    ranks on the card, each a spawned process holding a full replica of
    qwen2-0.5b at full width and 2 of its 24 layers (the train program of
@@ -211,7 +234,7 @@ Order and overlap: 1 to 4, 5's ``[serve]``, 6 and ``[train:long]`` run one
 after another with the card to themselves, so the kernels' times are
 taken alone. Then 7 and 9 run in a second process of this script
 (``--lane``, its output printed when it ends) while this one runs
-``[serve:proxy]`` and 8: the two lanes share no state, each path counts
+``[serve:proxy]``, 8 and ``[moe]``: the two lanes share no state, each path counts
 its launches in its own processes, and their wall times and step times
 are taken beside the other lane's work. The lane must end with 0 within
 ``SCRIPT_BUDGET_S`` of the script's start; on any failure it is stopped,
@@ -889,17 +912,25 @@ def phase_restart(store: str, final_state) -> dict:
     return s6["device"]
 
 
-def _served_position_logits(cfg, params, seq: torch.Tensor) -> torch.Tensor:
-    """The model's forward over ``seq``; f32 logits only at the positions
-    whose next token was served (full-vocab logits everywhere would add
-    10 GB)."""
+def _hidden(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The model's final hidden states over ``tokens`` (no logits: the
+    full-vocab logits of 2 x 8192 positions would take 10 GB)."""
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import logits_from_embed
 
     with torch.device("meta"):
         module = tfm.Transformer(cfg)
     with torch.no_grad():
-        h = torch.func.functional_call(module, tfm.module_params(params), (seq,))
+        return torch.func.functional_call(module, tfm.module_params(params), (tokens,))
+
+
+def _served_position_logits(cfg, params, seq: torch.Tensor) -> torch.Tensor:
+    """The model's forward over ``seq``; f32 logits only at the positions
+    whose next token was served."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import logits_from_embed
+
+    h = _hidden(cfg, params, seq)
+    with torch.no_grad():
         return logits_from_embed(tfm.lm_table(cfg, params), h[:, PROMPT - 1 :])
 
 
@@ -1249,12 +1280,14 @@ def phase_timing(device_state, main_launches: int) -> dict:
     return row
 
 
-def phase_flash_timing(serve_launches: int) -> dict:
+def _flash_timed(B, Hq, Hkv, S, D, reps: int, plain_reps: int) -> dict:
+    """The forward kernel at one prefill layer's shape (bf16, causal): its
+    ms, the plain version's, the library's fused attention with and without
+    deterministic algorithms, the bound and the error against plain."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
 
-    B, Hq, Hkv, S, D = SERVE_BATCH, 14, 2, PROMPT, 64  # one prefill layer
     q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16,
                             torch.Generator(device="cuda").manual_seed(2))
     kernel = flash_attention.flash_attention
@@ -1263,8 +1296,8 @@ def phase_flash_timing(serve_launches: int) -> dict:
     err = float((got.float() - want.float()).abs().max())
     ratio = _tol_ratio(got, want)
     del got, want
-    ms = _time_ms(lambda: kernel(q, k, v), 10)
-    plain_ms = _time_ms(lambda: ref.flash_attention_plain(q, k, v), 2)
+    ms = _time_ms(lambda: kernel(q, k, v), reps)
+    plain_ms = _time_ms(lambda: ref.flash_attention_plain(q, k, v), plain_reps)
     # the library's fused attention at Sq == Sk, where its top-left causal
     # mask is the right-aligned one, on the same values with v contiguous
     # (on the model's transposed view it leaves its fused path); timed
@@ -1278,35 +1311,57 @@ def phase_flash_timing(serve_launches: int) -> dict:
     # without them, where it may pick a faster backend; the faster is the
     # yardstick
     library()  # warm-up: its first call picks and loads a backend
-    library_det_ms = _time_ms(library, 10)
+    library_det_ms = _time_ms(library, reps)
     torch.use_deterministic_algorithms(False)
     library()
-    library_free_ms = _time_ms(library, 10)
+    library_free_ms = _time_ms(library, reps)
     torch.use_deterministic_algorithms(True)
-    library_ms = min(library_det_ms, library_free_ms)
-    del vc
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))  # out = q's
     flops = 4 * B * Hq * D * S * (S + 1) / 2  # q.k and p.v over causal pairs
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_TC_OPS_PER_S * 1e3
+    return {"q": tuple(q.shape), "kv": tuple(k.shape), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": min(library_det_ms, library_free_ms),
+            "library_det_ms": library_det_ms, "library_free_ms": library_free_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err, "tol_ratio": ratio, "flops": flops}
+
+
+def _flash_line(t: dict) -> str:
+    return (f"[timing] flash q={t['q']} k=v={t['kv']} bf16 causal "
+            f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.1f} "
+            f"library_ms={t['library_ms']:.4f} (deterministic {t['library_det_ms']:.4f}, "
+            f"not {t['library_free_ms']:.4f}) kernel/library={t['ms'] / t['library_ms']:.3f} "
+            f"bound_ms={t['bound_ms']:.4f} bound/kernel={t['bound_ms'] / t['ms']:.3f} "
+            f"TFLOP/s={t['flops'] / t['ms'] / 1e9:.1f} max_abs_err={t['max_abs_err']:.3g} "
+            f"({t['tol_ratio']:.3g}x the bf16 limit)")
+
+
+def phase_flash_timing(serve_launches: int) -> dict:
+    """The forward kernel at one layer of ``[serve]``'s prefill (q (2, 14,
+    8192, 64), k = v (2, 2, 8192, 64)), the row of the JSON line, and at
+    one layer of ``[moe]``'s (q = k = v (2, 16, 8192, 128)), the row's
+    ``hd128``."""
+    t = _flash_timed(SERVE_BATCH, 14, 2, PROMPT, 64, reps=10, plain_reps=2)
+    print(_flash_line(t), flush=True)
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
-        "launches": serve_launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "launches": serve_launches, "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
     }
-    print(f"[timing] flash q={tuple(q.shape)} k=v={tuple(k.shape)} bf16 causal "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.1f} library_ms={library_ms:.4f} "
-          f"(deterministic {library_det_ms:.4f}, not {library_free_ms:.4f}) "
-          f"kernel/library={ms / library_ms:.3f} bound_ms={row['bound_ms']:.4f} "
-          f"bound/kernel={row['bound_ms'] / ms:.3f} TFLOP/s={flops / ms / 1e9:.1f} "
-          f"max_abs_err={err:.3g} ({ratio:.3g}x the bf16 limit)", flush=True)
-    if not ratio <= 1:
-        raise SystemExit(f"flash_attention disagrees with plain at serve shapes: {err}")
+    wide = _flash_timed(SERVE_BATCH, 16, 16, PROMPT, 128, reps=10, plain_reps=1)
+    print(_flash_line(wide), flush=True)
+    row["hd128"] = {k: wide[k] for k in ("q", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "library_det_ms",
+                                         "library_free_ms", "max_abs_err")}
+    if not (t["tol_ratio"] <= 1 and wide["tol_ratio"] <= 1):
+        raise SystemExit(f"flash_attention disagrees with plain at serve shapes: "
+                         f"{t['max_abs_err']}, {wide['max_abs_err']}")
     return row
 
 
@@ -2376,6 +2431,338 @@ def phase_uvm(card: str, unmanaged6) -> dict:
                 launches_proxy={"chunk_digest": launches, "flash_attention": flash})
 
 
+# [moe]: moonshot-v1-16b-a3b at full width, cut to MOE_LAYERS of its 48
+# layers for the script's time (PERF.md §4), through the train CLI and the
+# serve CLI (which serves an image at its own depth). Six steps, so that
+# checkpoint 6 digests on the card: 2 and 4 are their buffers' first syncs
+MOE_ARCH, MOE_LAYERS, MOE_STEPS = "moonshot-v1-16b-a3b", 1, 6
+MOE_LOGIT_CHUNK = 512  # prompt positions per logits block in the f32 check
+
+
+def _dropped(log) -> tuple[int, int]:
+    """(dropped slots, slots) over a ``moe.routing_log``."""
+    return int(sum(int((~r.keep).sum()) for r in log)), sum(r.keep.numel() for r in log)
+
+
+def _same_routes(a, b, top_k: int, ordered: bool = False) -> torch.Tensor:
+    """Per token of a call (bool, in the call's batch-major order): the same
+    experts, each kept or dropped alike, in each of its logged layers in
+    both runs (``a`` and ``b``: the call's entries of two ``routing_log``s).
+    A token's slot order among its experts changes no slot's position in
+    its expert, only the order of its sum; ``ordered`` compares it too."""
+    same = None
+    for ra, rb in zip(a, b, strict=True):
+        ka, kb = ((r.ids.reshape(-1, top_k) * 2 + r.keep.reshape(-1, top_k)) for r in (ra, rb))
+        if not ordered:
+            ka, kb = ka.sort(dim=1).values, kb.sort(dim=1).values
+        eq = (ka == kb).all(1)
+        same = eq if same is None else same & eq
+    return same
+
+
+def phase_moe(card: str) -> dict:
+    """The MoE family on the card (``[moe]``): moonshot-v1-16b-a3b at full
+    width (d_model 2048, 16 heads x 128, 64 experts top-6, d_ff 1408,
+    vocab 163,840, capacity 1.25, bf16, the f32 router), 1 of its 48 layers.
+
+    The train CLI: batch 4, seq 512, the config's 2 microbatches and
+    ``remat="dots"``, 6 steps, fork checkpoints at 2, 4 and 6 (2 and 4 each
+    their buffer's first sync: no digest; 6 one grouped ``chunk_digest``
+    launch, counted between the step's end and the run's), codec none,
+    1 MiB chunks; per step its ms, peak GB, loss, and from a forward per
+    microbatch at the step's params its aux, CE and the share of dropped
+    slots; the step-6 image's digests those of the run's state, and the
+    kernel's digests of that state bitwise those of the plain version;
+    step 4 restored and run to 6 bitwise equal to it. The serve CLI
+    on the step-6 image: lazy restore, batch 2, an 8,192-token prompt (one
+    flash launch per layer, on ``wgmma`` at head dim 128), 32 greedy
+    tokens; eager restore the same bits. A forward over a sequence routes
+    its groups with capacity drops, a decode step routes B tokens and never
+    drops, so the served logits are not held to a teacher-forced forward:
+    the prefill's last position must equal the forward over the prompt
+    (the same groups) bit for bit, and the served logits are held to the
+    same prefill and decode in the f32 upcast of the params. A router
+    near-tie may route a token otherwise in bf16 than in f32 and move its
+    logits a long way; at this depth a token's logits depend on its own
+    routing alone, so the check holds the positions that route alike in
+    both (the same experts, kept or dropped alike, in any order; at least
+    half of them must): no further from the f32 ones than
+    the bf16 forward over the prompt lies from the f32 forward at any
+    prompt token routed alike, and every such position whose top two f32
+    logits lie more than twice that difference apart picks the same token.
+    The others are counted, with the f32 router's gap between its K-th and
+    (K+1)-th logit: each must lie below twice the served router's shift
+    from the f32 one there (a near-tie)."""
+    import dataclasses
+
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.checkpoint.manifest import load_manifest
+    from repro_torch.configs import get_config
+    from repro_torch.core import RestoreManager
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import chunk_digest, ops, ref
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import logits_from_embed
+    from repro_torch.runtime.steps import batch_to_device
+    from repro_torch.utils.tree import flatten_with_paths, tree_equal, unflatten_from_paths
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    steps = []
+    make, cli_config = train.make_train_step, train.get_config
+
+    def counting_make(model, optimizer, **kw):
+        fn = make(model, optimizer, **kw)
+        mb = kw.get("microbatches") or model.cfg.microbatches
+
+        def step(state, batch):
+            n = batch["inputs"].shape[0] // mb
+            with torch.no_grad(), moe.routing_log() as log:
+                ms = [model.loss(state["params"], {k: v[i * n:(i + 1) * n]
+                                                   for k, v in batch.items()})[1]
+                      for i in range(mb)]
+            seen = {"aux": float(sum(m["aux"] for m in ms)) / mb,
+                    "ce": float(sum(m["ce"] for m in ms)) / mb}
+            seen["dropped"], seen["slots"] = _dropped(log)
+            del log
+            torch.cuda.synchronize()
+            c0 = _counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            c1 = _counts()
+            steps.append(dict(seen, ms=(time.perf_counter() - t0) * 1e3,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              loss=float(out[1]["loss"]),
+                              digests_at=(c0["chunk_digest"], c1["chunk_digest"]),
+                              **{k: c1[k] - c0[k] for k in
+                                 ("chunk_digest", "flash_attention", "flash_attention_bwd")}))
+            return out
+
+        return step
+
+    argv = ["--arch", MOE_ARCH, "--steps", str(MOE_STEPS), "--batch", str(BATCH),
+            "--seq", str(SEQ), "--lr", str(LR), "--ckpt-every", "2", "--backend", "fork",
+            "--codec", "none", "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-moe-") as tmp:
+        store = os.path.join(tmp, "ckpt")
+        train.make_train_step = counting_make
+        train.get_config = lambda name, smoke=False: cfg  # the CLI at 1 of 48 layers
+        try:
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = train.train(argv + ["--ckpt-dir", store])
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        finally:
+            train.make_train_step = make
+            train.get_config = cli_config
+        # digest launches after each step, up to the next step's start (or
+        # the run's end): that step's checkpoint sync, where it has one
+        after = [b - a[1] for a, b in zip(
+            [st["digests_at"] for st in steps],
+            [st["digests_at"][0] for st in steps[1:]] + [counts["chunk_digest"]])]
+        syncs = after[1::2]
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in flatten_with_paths(out["state"]["device"])[0].values())
+        leaves = len(flatten_with_paths(out["state"]["device"])[0])
+        for i, st in enumerate(steps, 1):
+            print(f"[moe] {card} step={i} step_ms={st['ms']:.1f} peak_gb={st['peak_gb']:.2f} "
+                  f"loss={st['loss']:.4f} ce={st['ce']:.4f} aux={st['aux']:.4f} "
+                  f"dropped_slots={st['dropped']}/{st['slots']} "
+                  f"({st['dropped'] / st['slots']:.4f}) launches: digest={st['chunk_digest']} "
+                  f"flash={st['flash_attention']} flash_bwd={st['flash_attention_bwd']}",
+                  flush=True)
+        for r, n in zip(out["results"], syncs):
+            print(f"[moe] {card} ckpt step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
+                  f"persist_ms={r.persist_s * 1e3:.1f} digest_ms={r.digest_us / 1e3:.1f} "
+                  f"digest_launches={n} {_fetch_split(r)} synced={r.chunks_synced} "
+                  f"written={r.chunks_written}", flush=True)
+        m = out["metrics"]
+        print(f"[moe] arch={MOE_ARCH} layers={cfg.num_layers} of 48 d_model={cfg.d_model} "
+              f"experts={cfg.moe_experts} top_k={cfg.moe_top_k} capacity={cfg.moe_capacity_factor} "
+              f"microbatches={cfg.microbatches} remat={cfg.remat} state_bytes={state_bytes} "
+              f"({leaves} leaves) steps={out['final_step']} wall_s={wall:.1f} "
+              f"loss={m['loss']:.4f} grad_norm={m['grad_norm']:.4f} digest_launches_per_sync="
+              f"{syncs} launches={ {k: counts[k] for k in ('chunk_digest', 'flash_attention', 'flash_attention_bwd')} }",
+              flush=True)
+        if out["final_step"] != MOE_STEPS or not all(map(math.isfinite, m.values())) or not all(
+                math.isfinite(st[k]) for st in steps for k in ("loss", "aux", "ce")):
+            raise SystemExit(f"[moe] did not train cleanly: {out['final_step']} {m}")
+        if [r.step for r in out["results"]] != [2, 4, 6]:
+            raise SystemExit(f"[moe] images: {[r.step for r in out['results']]}")
+        if after != [0] * (MOE_STEPS - 1) + [-(-leaves // chunk_digest.CAPACITY)] or any(
+                st[k] for st in steps
+                for k in ("chunk_digest", "flash_attention", "flash_attention_bwd")):
+            raise SystemExit(f"[moe] launches: after each step {after}, per step {steps}")
+
+        # the step-6 image holds the run's state: its chunk digests are the
+        # live state's (the digest kernel over the card tensors)
+        manifest = load_manifest(store, MOE_STEPS)
+        stored = {path: [c.digest for sh in lv.shards for c in sh.chunks]
+                  for path, lv in manifest.leaves.items()}
+        image_same = ops.tree_chunk_digests(out["state"], 1 << 20) == stored
+        # the grouped digest over this state, as a sync makes it (timed
+        # beside the other lane's work), held against the plain version on
+        # the same leaves: the image's digests above are the kernel's own
+        tensors = list(flatten_with_paths(out["state"]["device"])[0].values())
+        digest_ms = _time_ms(lambda: chunk_digest.chunk_digest_table(tensors, 1 << 20)[0], 5)
+        table = chunk_digest.chunk_digest_table(tensors, 1 << 20)[0]
+        plain = torch.cat([ref.chunk_digests_plain(t, 1 << 20) for t in tensors])
+        digest_equal = torch.equal(table, plain)
+        print(f"[moe] {card} digest over the state: kernel_ms={digest_ms:.3f} "
+              f"bound_ms={state_bytes / MEM_BYTES_PER_S * 1e3:.3f} (bytes) "
+              f"rows={table.shape[0]} bitwise_equal_to_plain={digest_equal}", flush=True)
+        del tensors, table, plain
+        torch.cuda.empty_cache()
+        if not digest_equal:
+            raise SystemExit("[moe] the digest kernel disagrees with its plain version")
+        run = build_training(cfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=MOE_STEPS,
+                             device=cuda)
+        t_restore = time.perf_counter()
+        state, _ = RestoreManager(ChunkStore(store)).restore(step=4, device_for=run.device_for)
+        t_restore = time.perf_counter() - t_restore
+        data = SyntheticBatches.from_state(cfg, batch=BATCH, seq_len=SEQ,
+                                           state=state["host"]["data"])
+        for step in (5, 6):
+            state["device"], _ = run.step_fn(state["device"], batch_to_device(next(data), cuda))
+            state["host"]["step"] = np.int64(step)
+            state["host"]["data"] = data.state()
+        torch.cuda.synchronize()
+        same = tree_equal(state, out["state"])
+        print(f"[moe] step-6 image digests equal the run's state: {image_same}; restored "
+              f"step 4 in {t_restore:.1f} s, ran 5..6: bitwise_equal to the run's step-6 "
+              f"state={same}", flush=True)
+        if not image_same:
+            raise SystemExit("[moe] the stored step-6 image differs from the run")
+        if not same:
+            raise SystemExit("[moe] the restart diverged from the step-6 state")
+        del state, out, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serving the step-6 image at its depth
+        argv = ["--arch", MOE_ARCH, "--ckpt-dir", store, "--batch", str(SERVE_BATCH),
+                "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+        _zero_counts()
+        with moe.routing_log() as served_log:
+            srv = serve.serve(argv + ["--lazy"])
+        scounts = _counts()
+        flash = scounts["flash_attention"]
+        print(f"[moe] {card} serve lazy restore_s={srv['restore_s']:.3f} "
+              f"ttft_s={srv['ttft_s']:.3f} decode_tok_s={srv['decode_tok_s']:.1f} "
+              f"step={srv['step']} flash_attention_launches={flash} "
+              f"by_route={scounts['flash_attention_by_route']} "
+              f"chunk_digest_launches={scounts['chunk_digest']}", flush=True)
+        logits = srv["logits"]
+        if srv["step"] != MOE_STEPS or flash != cfg.num_layers or \
+                scounts["flash_attention_by_route"]["wgmma"] != flash:
+            raise SystemExit(f"[moe] serve: step {srv['step']}, flash launches {scounts}")
+        if logits.shape != (SERVE_BATCH, GEN, cfg.vocab_size) or not bool(
+                logits.isfinite().all()):
+            raise SystemExit(f"[moe] served logits: {tuple(logits.shape)}")
+        eager = serve.serve(argv)
+        eager_same = bool(np.array_equal(eager["tokens"], srv["tokens"])
+                          and torch.equal(eager["logits"], logits))
+        print(f"[moe] {card} serve eager restore_s={eager['restore_s']:.3f} "
+              f"ttft_s={eager['ttft_s']:.3f} decode_tok_s={eager['decode_tok_s']:.1f} "
+              f"bitwise_equal_to_lazy={eager_same}", flush=True)
+        del eager
+        if not eager_same:
+            raise SystemExit("[moe] eager and lazy serving disagree")
+
+    # a token's logits depend on its own routing at this depth (1 layer):
+    # a near-tie in the router may pick another expert in bf16 than in f32
+    # and move that token a long way, so both checks hold the tokens that
+    # route alike in the two, and count (and show the router's gap at) the
+    # ones that do not
+    L, K, B = cfg.num_layers, cfg.moe_top_k, SERVE_BATCH
+    params, prompt = srv["params"], srv["prompt"]
+    flat, treedef = flatten_with_paths(params)
+    params32 = unflatten_from_paths(treedef, {p: t.float() for p, t in flat.items()})
+    table, table32 = tfm.lm_table(cfg, params), tfm.lm_table(cfg, params32)
+    with moe.routing_log() as fwd_log:
+        h16 = _hidden(cfg, params, prompt)
+    with moe.routing_log() as fwd32_log:
+        h32 = _hidden(cfg, params32, prompt)
+    fwd_dropped, fwd_slots = _dropped(fwd_log)
+    fwd_same = _same_routes(fwd_log, fwd32_log, K).reshape(B, PROMPT)
+    with torch.no_grad():
+        prefill_same = torch.equal(logits_from_embed(table, h16[:, -1:])[:, 0], logits[:, 0])
+        tol = 0.0
+        for s0 in range(0, PROMPT, MOE_LOGIT_CHUNK):
+            s1 = s0 + MOE_LOGIT_CHUNK
+            d = (logits_from_embed(table, h16[:, s0:s1])
+                 - logits_from_embed(table32, h32[:, s0:s1])).abs().amax(-1)
+            tol = max(tol, float(d.masked_fill(~fwd_same[:, s0:s1], 0).max()))
+    del h16, h32
+    with torch.device("meta"):
+        module = tfm.Transformer(cfg)
+    served = torch.from_numpy(srv["tokens"]).to(cuda, torch.int32)
+    with torch.no_grad(), moe.routing_log() as f32_log:
+        lg, cache = tfm.prefill(module, params32, prompt, PROMPT + GEN)
+        truth = [lg[:, 0]]
+        for t in range(GEN - 1):
+            lg, cache = tfm.decode_step(module, params32, cache, served[:, t])
+            truth.append(lg)
+    truth = torch.stack(truth, dim=1)
+    # served position 0 is the prefill's last token, t > 0 decode step t
+    same, ordered = (torch.stack(
+        [_same_routes(served_log[:L], f32_log[:L], K, o).reshape(B, PROMPT)[:, -1]]
+        + [_same_routes(served_log[L * t:L * (t + 1)], f32_log[L * t:L * (t + 1)], K, o)
+           for t in range(1, GEN)], dim=1) for o in (False, True))
+    dec_dropped = _dropped(f32_log[L:])[0] + _dropped(served_log[L:])[0]
+    # per decoded token and layer: the f32 router's K-th minus (K+1)-th
+    # logit, and the largest difference of the served router's logits from
+    # the f32 ones; a shift of d in each logit can swap two that lie less
+    # than 2 d apart, so a token routed otherwise is a near-tie when, in a
+    # layer, its gap lies below twice its shift
+    near, shift = [], []
+    for t in range(1, GEN):
+        for rs, rf in zip(served_log[L * t:L * (t + 1)], f32_log[L * t:L * (t + 1)]):
+            top = rf.logits.reshape(B, -1).topk(K + 1, dim=-1).values
+            d = (rs.logits - rf.logits).reshape(B, -1).abs().amax(-1)
+            near.append((top[:, K - 1] - top[:, K]) < 2 * d)
+            shift.append(d)
+    near = torch.stack(near).reshape(GEN - 1, L, B).any(1).T      # (B, GEN - 1)
+    shift = torch.stack(shift)
+    diff = (logits - truth).abs().amax(-1)                        # (B, GEN)
+    err = float(diff.masked_fill(~same, 0).max())
+    top2 = truth.topk(2, dim=-1).values
+    decided = same & ((top2[..., 0] - top2[..., 1]) > 2 * err)
+    agree = served == truth.argmax(dim=-1)
+    flipped = ~same[:, 1:]
+    print(f"[moe] {card} prefill_last_logits_bitwise_equal_to_forward_over_prompt="
+          f"{prefill_same} (the forward over the prompt dropped {fwd_dropped}/{fwd_slots} "
+          f"slots at capacity {cfg.moe_capacity_factor}; decode dropped {dec_dropped}) "
+          f"served_vs_f32_decode={err:.4g} over the {int(same.sum())}/{same.numel()} "
+          f"positions routed alike (tol {tol:.4g} = bf16-vs-f32 forward over the "
+          f"{int(fwd_same.sum())}/{fwd_same.numel()} prompt tokens routed alike; "
+          f"all positions {float(diff.max()):.4g}) max_abs_logit="
+          f"{float(truth.abs().max()):.4g} decode positions routed otherwise: "
+          f"{int(flipped.sum())}, near-ties {int((flipped & near).sum())}; with the "
+          f"same experts in another order {int((same & ~ordered).sum())} (router logits "
+          f"served vs f32: median shift {float(shift.median()):.3g}, max "
+          f"{float(shift.max()):.3g}) "
+          f"greedy_agree={int(agree.sum())}/{agree.numel()} "
+          f"decided_agree={int((agree & decided).sum())}/{int(decided.sum())}", flush=True)
+    if not prefill_same:
+        raise SystemExit("[moe] the prefill's last logits differ from the forward's")
+    if not (err <= tol and bool(agree[decided].all()) and not dec_dropped
+            and float(same.float().mean()) >= 0.5 and bool(near[flipped].all())):
+        raise SystemExit("[moe] served logits disagree with the f32 prefill and decode")
+    del params, params32, truth, cache, srv, served_log, f32_log, fwd_log, fwd32_log
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"chunk_digest": counts["chunk_digest"],
+                         "flash_attention": flash,
+                         "flash_attention_bwd": counts["flash_attention_bwd"]}}
+
+
 @contextlib.contextmanager
 def _clock(tag: str):
     """The phase's wall-clock line, printed when it ends; its start and end
@@ -2930,6 +3317,9 @@ def main() -> int:
             del serve_params
             with _clock("uvm"):
                 uvm = phase_uvm(card, unmanaged6)
+            del unmanaged6
+            with _clock("moe"):
+                moed = phase_moe(card)
             laned = _lane_result(lane, lane_log, lane_out, t_script)
         finally:
             _stop_lane(lane)
@@ -2949,6 +3339,7 @@ def main() -> int:
         row["launches_cluster"] = laned["cluster"].get(row["name"])
         row["launches_cluster_proxy"] = laned["cluster_proxy"].get(row["name"])
         row["launches_cluster_remote"] = laned["cluster_remote"].get(row["name"])
+        row["launches_moe"] = moed["launches"][row["name"]]
     print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` ids as the reference names them.
 
 Only architectures whose model code is ported to PyTorch are listed: the
-dense text transformers. Their configs are the reference's, field for
-field; qwen2-0.5b trains on one card at full size, the others' full sizes
+dense and the MoE text transformers. Their configs are the reference's,
+field for field; qwen2-0.5b trains on one card at full size, and
+moonshot-v1-16b-a3b at full width (cut in depth); the others' full sizes
 need the sharding the port does not have yet (``runtime/sharding.py``).
 """
 from __future__ import annotations
@@ -16,6 +17,8 @@ _MODULES = {
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "granite-8b": "repro_torch.configs.granite_8b",
     "gemma-2b": "repro_torch.configs.gemma_2b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 
 

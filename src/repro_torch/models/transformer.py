@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer as ``nn.Module``s.
+"""Decoder-only transformer as ``nn.Module``s: the dense family, and the
+MoE family, whose blocks swap the MLP for ``models/moe.py``.
 
 Layer weights are stacked along a leading L axis in the reference's
 ``(in, out)`` layout, under the reference's names, so the parameter tree
@@ -21,8 +22,12 @@ Training rematerialises each layer as the reference's ``_remat`` does
 the layer in the backward, ``"dots"`` keeps the outputs of matmuls without
 batch dims and recomputes the rest. Remat changes memory, never values.
 
-Not ported: MoE blocks, ``prefix_len`` (prefix-LM masking; it belongs with
-the multimodal models that use it).
+The forward also gives the MoE layers' summed router aux loss
+(``return_aux``; 0 for a dense model), which the loss adds.
+
+Not ported: ``prefix_len`` (prefix-LM masking; it belongs with the
+multimodal models that use it), the SSM and hybrid families and the
+frontends.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.layers import (
     apply_rope,
     decode_attention,
@@ -76,15 +82,43 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """wi/wg (L, D, F) and wo (L, F, D); wg only for gated MLPs."""
+    """wi/wg (L, D, F) and wo (L, F, D); wg only for gated MLPs. F is
+    ``cfg.d_ff``, or ``width`` (the MoE block's dense residual branch)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, width: int | None = None):
         super().__init__()
-        L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
+        L, D, F = cfg.num_layers, cfg.d_model, width or cfg.d_ff
         self.wi = _param(L, D, F, dtype=dtype)
         self.wo = _param(L, F, D, dtype=dtype)
         if cfg.mlp_type in ("swiglu", "geglu"):
             self.wg = _param(L, D, F, dtype=dtype)
+
+
+class MoE(nn.Module):
+    """The experts of all L layers: router (L, D, E) f32 in every model,
+    wi/wg (L, E, D, F), wo (L, E, F, D), and ``dense`` where
+    ``cfg.moe_dense_ff``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        L, D, E, F = cfg.num_layers, cfg.d_model, cfg.moe_experts, cfg.d_ff
+        self.router = _param(L, D, E, dtype=torch.float32)
+        self.wi = _param(L, E, D, F, dtype=dtype)
+        self.wo = _param(L, E, F, D, dtype=dtype)
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            self.wg = _param(L, E, D, F, dtype=dtype)
+        if cfg.moe_dense_ff:
+            self.dense = MLP(cfg, dtype, cfg.moe_dense_ff)
+
+    def weights(self, i: int) -> dict:
+        """Layer i's slices, under the reference's names."""
+        def layer(m: nn.Module, names: tuple) -> dict:
+            return {n: getattr(m, n)[i] for n in names if hasattr(m, n)}
+
+        w = layer(self, ("router", "wi", "wg", "wo"))
+        if hasattr(self, "dense"):
+            w["dense"] = layer(self.dense, ("wi", "wg", "wo"))
+        return w
 
 
 def _qkv(cfg: ModelConfig, w: dict, h: torch.Tensor):
@@ -100,22 +134,31 @@ def _qkv(cfg: ModelConfig, w: dict, h: torch.Tensor):
     return q, k, v
 
 
+def _ffn(cfg: ModelConfig, w: dict, h: torch.Tensor):
+    """The block's MLP, or its MoE layer -> (out, aux: None for an MLP)."""
+    if "moe" in w:
+        return moe_apply(cfg, w["moe"], h)
+    return mlp_apply(w["wi"], w["mlp_wo"], w.get("wg"), h, cfg.mlp_type), None
+
+
 def _finish(cfg: ModelConfig, w: dict, x: torch.Tensor, h: torch.Tensor,
-            attn_out: torch.Tensor) -> torch.Tensor:
+            attn_out: torch.Tensor):
+    """The block after attention -> (x, the MoE aux or None)."""
     B, S, _ = x.shape
     attn_out = attn_out.transpose(1, 2).reshape(B, S, cfg.q_dim)
     attn_out = attn_out @ w["attn_wo"]
     if cfg.parallel_block:
-        return x + attn_out + mlp_apply(w["wi"], w["mlp_wo"], w.get("wg"), h, cfg.mlp_type)
+        out, aux = _ffn(cfg, w, h)
+        return x + attn_out + out, aux
     x = x + attn_out
-    h2 = rmsnorm(x, w["ln2"], cfg.norm_eps)
-    return x + mlp_apply(w["wi"], w["mlp_wo"], w.get("wg"), h2, cfg.mlp_type)
+    out, aux = _ffn(cfg, w, rmsnorm(x, w["ln2"], cfg.norm_eps))
+    return x + out, aux
 
 
 def _layer(cfg: ModelConfig, w: dict, x: torch.Tensor, positions: torch.Tensor):
     """One layer over (B, S, D) from its weights ``w`` -> (x, post-RoPE k,
-    v (B, Hkv, S, Dh)). A function of its arguments alone, so remat can run
-    it again in the backward."""
+    v (B, Hkv, S, Dh), the MoE aux or None). A function of its arguments
+    alone, so remat can run it again in the backward."""
     h = rmsnorm(x, w["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, w, h)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -125,13 +168,15 @@ def _layer(cfg: ModelConfig, w: dict, x: torch.Tensor, positions: torch.Tensor):
         chunked_threshold=cfg.attn_chunked_threshold,
         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
     )
-    return _finish(cfg, w, x, h, attn_out), k, v
+    x, aux = _finish(cfg, w, x, h, attn_out)
+    return x, k, v, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
     """``dots_with_no_batch_dims_saveable``: keep ``x @ W`` (aten ``mm`` and
-    ``addmm``), recompute everything else (batched products, norms, RoPE,
-    attention, activations)."""
+    ``addmm``, the router's logits among them), recompute everything else
+    (batched products such as the experts', norms, RoPE, attention,
+    activations, the routing)."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -167,31 +212,38 @@ class Blocks(nn.Module):
         super().__init__()
         self.ln1 = _param(cfg.num_layers, cfg.d_model, dtype=dtype)
         self.attn = Attention(cfg, dtype)
-        self.mlp = MLP(cfg, dtype)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, dtype)
+        else:
+            self.mlp = MLP(cfg, dtype)
         if not cfg.parallel_block:
             self.ln2 = _param(cfg.num_layers, cfg.d_model, dtype=dtype)
 
     def weights(self, cfg: ModelConfig, i: int) -> dict:
         """Layer i's slices of the stacked weights."""
         w = {"ln1": self.ln1[i], "wq": self.attn.wq[i], "wk": self.attn.wk[i],
-             "wv": self.attn.wv[i], "attn_wo": self.attn.wo[i], "wi": self.mlp.wi[i],
-             "mlp_wo": self.mlp.wo[i]}
+             "wv": self.attn.wv[i], "attn_wo": self.attn.wo[i]}
         if cfg.qkv_bias:
             w.update(bq=self.attn.bq[i], bk=self.attn.bk[i], bv=self.attn.bv[i])
-        if cfg.mlp_type in ("swiglu", "geglu"):
-            w["wg"] = self.mlp.wg[i]
+        if cfg.family == "moe":
+            w["moe"] = self.moe.weights(i)
+        else:
+            w.update(wi=self.mlp.wi[i], mlp_wo=self.mlp.wo[i])
+            if cfg.mlp_type in ("swiglu", "geglu"):
+                w["wg"] = self.mlp.wg[i]
         if not cfg.parallel_block:
             w["ln2"] = self.ln2[i]
         return w
 
     def layer(self, cfg: ModelConfig, i: int, x: torch.Tensor,
               positions: torch.Tensor):
-        """Layer i over (B, S, D) -> (x, post-RoPE k, v (B, Hkv, S, Dh)),
-        rematerialised per ``cfg.remat`` when a gradient is being taken."""
+        """Layer i over (B, S, D) -> (x, post-RoPE k, v (B, Hkv, S, Dh), the
+        MoE aux or None), rematerialised per ``cfg.remat`` when a gradient
+        is being taken."""
         w = self.weights(cfg, i)
         fn = functools.partial(_layer, cfg)
         if torch.is_grad_enabled() and (x.requires_grad or any(
-                t.requires_grad for t in w.values())):
+                t.requires_grad for t in flatten_with_paths(w)[0].values())):
             fn = _remat(cfg, fn)
         return fn(w, x, positions)
 
@@ -209,7 +261,7 @@ class Blocks(nn.Module):
         k_cache[:, :, pos] = k[:, :, 0].to(k_cache.dtype)
         v_cache[:, :, pos] = v[:, :, 0].to(v_cache.dtype)
         attn_out = decode_attention(q, k_cache, v_cache, pos)
-        return _finish(cfg, w, x, h, attn_out)
+        return _finish(cfg, w, x, h, attn_out)[0]
 
 
 class Transformer(nn.Module):
@@ -217,10 +269,10 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family != "dense" or cfg.frontend != "none":
+        if cfg.family not in ("dense", "moe") or cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.name}: only dense text transformers are ported to "
-                "PyTorch yet"
+                f"{cfg.name}: the {cfg.family} family (frontend={cfg.frontend}) "
+                "is not ported to PyTorch yet; dense and moe text transformers are"
             )
         self.cfg = cfg
         dtype = torch_dtype(cfg.param_dtype)
@@ -241,12 +293,14 @@ class Transformer(nn.Module):
         return x
 
     def forward(self, tokens: torch.Tensor, *, logits: bool = False,
-                return_cache: bool = False, cache: dict | None = None):
+                return_cache: bool = False, return_aux: bool = False,
+                cache: dict | None = None):
         """The full forward, or with ``cache`` one decode step.
 
         Without ``cache``: tokens (B, S) -> final hidden (B, S, D), or f32
         logits (B, S, V) with ``logits``; with ``return_cache`` also
-        ``{"k", "v"}``, the stacked post-RoPE k/v (L, B, Hkv, S, Dh).
+        ``{"k", "v"}``, the stacked post-RoPE k/v (L, B, Hkv, S, Dh); with
+        ``return_aux`` last the layers' summed MoE aux loss (f32 scalar).
 
         With ``cache`` (``{"k", "v"}`` of (L, B, Hkv, Smax, Dh) and ``pos``,
         the index the new token is written at): tokens (B,) -> f32 logits
@@ -265,16 +319,21 @@ class Transformer(nn.Module):
         x = self.embed_tokens(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         ks, vs = [], []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.num_layers):
-            x, k, v = self.blocks.layer(cfg, i, x, positions)
+            x, k, v, a = self.blocks.layer(cfg, i, x, positions)
+            if a is not None:
+                aux = aux + a
             if return_cache:
                 ks.append(k)
                 vs.append(v)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-        out = logits_from_embed(self.lm_table(), x) if logits else x
+        out = (logits_from_embed(self.lm_table(), x) if logits else x,)
         if return_cache:
-            return out, {"k": torch.stack(ks), "v": torch.stack(vs)}
-        return out
+            out += ({"k": torch.stack(ks), "v": torch.stack(vs)},)
+        if return_aux:
+            out += (aux,)
+        return out if len(out) > 1 else out[0]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -284,7 +343,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     The same distributions as the reference's ``init_params`` (normal
     weights scaled by 1/sqrt(fan-in), embeddings by 0.02, zero norms and
-    biases); the numbers differ, since the two RNG streams differ.
+    biases, the MoE router in f32); the numbers differ, since the two RNG
+    streams differ.
     """
     dtype = torch_dtype(cfg.param_dtype)
     dev = torch.device(device) if device is not None else generator.device
@@ -306,13 +366,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if cfg.qkv_bias:
         attn.update(bq=zeros(L, Q), bk=zeros(L, KV), bv=zeros(L, KV))
-    mlp = {
-        "wi": normal(L, D, F, scale=s_in),
-        "wo": normal(L, F, D, scale=1.0 / np.sqrt(F)),
-    }
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        mlp["wg"] = normal(L, D, F, scale=s_in)
-    blocks = {"ln1": zeros(L, D), "attn": attn, "mlp": mlp}
+
+    def mlp(*lead: int, width: int) -> dict:
+        p = {"wi": normal(*lead, D, width, scale=s_in),
+             "wo": normal(*lead, width, D, scale=1.0 / np.sqrt(width))}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            p["wg"] = normal(*lead, D, width, scale=s_in)
+        return p
+
+    blocks = {"ln1": zeros(L, D), "attn": attn}
+    if cfg.family == "moe":
+        E = cfg.moe_experts
+        moe = mlp(L, E, width=F)
+        moe["router"] = (torch.randn((L, D, E), generator=generator, device=dev)
+                         * s_in).float()
+        if cfg.moe_dense_ff:
+            moe["dense"] = mlp(L, width=cfg.moe_dense_ff)
+        blocks["moe"] = moe
+    else:
+        blocks["mlp"] = mlp(L, width=F)
     if not cfg.parallel_block:
         blocks["ln2"] = zeros(L, D)
     params = {

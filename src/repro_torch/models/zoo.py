@@ -1,10 +1,12 @@
-"""Model zoo: one API over the ported families.
+"""Model zoo: one API over the ported families (dense and MoE text
+transformers).
 
 ``build(cfg)`` returns a ``Model`` whose functions take the params as a
 nested dict of tensors (the checkpointed state), like the reference's:
 
     init(generator)                   -> params
-    loss(params, batch)               -> (scalar f32 loss, metrics dict)
+    loss(params, batch)               -> (CE + z-loss + MoE aux, {"loss",
+                                         "ce", "aux"})
     forward(params, batch)            -> logits (B, S, V) f32
     prefill(params, batch, cache_len) -> (logits (B, 1, V) f32, cache)
     decode(params, cache, tokens)     -> (logits (B, V) f32, cache)
@@ -92,15 +94,13 @@ class Model:
     init_cache: Callable
 
 
-def _build_dense(cfg: ModelConfig) -> Model:
+def _build_dense_or_moe(cfg: ModelConfig) -> Model:
     with torch.device("meta"):
         module = tfm.Transformer(cfg)
 
-    def hidden(params, inputs):
-        return functional_call(module, module_params(params), (inputs,))
-
     def loss(params, batch):
-        h = hidden(params, batch["inputs"])
+        h, aux = functional_call(module, module_params(params), (batch["inputs"],),
+                                 {"return_aux": True})
         table = lm_table(cfg, params)
         if cfg.ce_chunk_tokens:
             l, ce = chunked_lm_xent(
@@ -108,7 +108,6 @@ def _build_dense(cfg: ModelConfig) -> Model:
             )
         else:
             l, ce = softmax_xent(logits_from_embed(table, h), batch["targets"])
-        aux = torch.zeros((), dtype=torch.float32, device=l.device)
         return l + aux, {"loss": l, "ce": ce, "aux": aux}
 
     def forward(params, batch):
@@ -132,9 +131,9 @@ def _build_dense(cfg: ModelConfig) -> Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense" and cfg.frontend == "none":
-        return _build_dense(cfg)
+    if cfg.family in ("dense", "moe") and cfg.frontend == "none":
+        return _build_dense_or_moe(cfg)
     raise NotImplementedError(
-        f"{cfg.name} ({cfg.family}, frontend={cfg.frontend}) is not ported "
-        "to PyTorch yet"
+        f"{cfg.name}: the {cfg.family} family (frontend={cfg.frontend}) is "
+        "not ported to PyTorch yet"
     )
