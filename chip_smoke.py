@@ -86,11 +86,14 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    attention, ``scaled_dot_product_attention``'s (the kernel's ratio to it
    and its share of the bound on the ``[timing] flash`` line; a second
    line times one layer of ``[moe]``'s prefill, q = k = v (2, 16, 8192,
-   128), the row's ``hd128``), printed as
+   128), the row's ``hd128``, a third one application of ``[hybrid]``'s
+   shared block, q = k = v (2, 32, 8192, 64), the row's ``mha64``),
+   printed as
    one ``{"kernels": [...]}`` JSON line, printed at the end with each
    kernel's launches on every later path too (``launches_train_long``,
    ``launches_proxy``, ``_uvm_inline``, ``_uvm_proxy``, ``_serve_proxy``,
-   ``_cluster``, ``_cluster_proxy``, ``_cluster_remote``, ``_moe``: counted where
+   ``_cluster``, ``_cluster_proxy``, ``_cluster_remote``, ``_moe``,
+   ``_hybrid``: counted where
    they ran; the backward's are null on paths counted in other processes,
    which report the digest and the forward only, at seq 512);
    ``[train:long]``: the train CLI on qwen2-0.5b at full width and depth,
@@ -228,11 +231,32 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    3 journaled injections, printed on a ``[chaos]`` line. Printed: the
    placements, the moved ranks and the reschedule latency (death reported
    to the moved rank's first SYNCED on the survivor);
-10. the last line: ``{"ok": true, "device": {...}}``.
+10. the SSM and hybrid families (``[hybrid]``): zamba2-1.2b at full width
+   (d_model 2048, 64 SSD heads x 64, state 64, chunk 256, the shared block
+   32 x 64 MHA with d_ff 8192, vocab 32,000, bf16 with the f32 ``A_log``,
+   ``D``, ``dt_bias``), cut to 12 of its 38 layers for the script's time
+   (the shared block after layers 6 and 12; 4.40 GB of state under
+   AdamW): the train CLI at batch 4, seq 512, 4 microbatches,
+   ``remat="dots"``, 6 steps, fork checkpoints at 2, 4 and 6, codec none
+   (per step its ms, peak GB, loss, whether every gradient leaf is finite
+   and the largest decay exponent summed over a chunk, |A| * sum(dt);
+   digest launches per checkpoint [0, 0, 1]; no attention kernel at seq
+   512); the step-6 image's digests the run's state's, the grouped digest
+   over the whole state bitwise equal to ``chunk_digests_plain`` leaf by
+   leaf, the step-4 image run to 6 bitwise equal; the serve CLI on the
+   step-6 image (lazy, batch 2, 8,192-token prompt, 32 greedy tokens; one
+   ``wgmma`` flash launch per application of the shared block, 2; eager
+   the same bits), the prefill's last logits equal to a forward over the
+   prompt bit for bit, the served logits no further from the f32
+   upcast's forward over prompt + 31 served tokens than the bf16 forward
+   lies from it over the prompt; then the serve CLI on mamba2-130m at full
+   size (24 layers, state 128) from a fresh init: no flash launch, the
+   same checks. Lane 2, after the cluster phases;
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Order and overlap: 1 to 4, 5's ``[serve]``, 6 and ``[train:long]`` run one
 after another with the card to themselves, so the kernels' times are
-taken alone. Then 7 and 9 run in a second process of this script
+taken alone. Then 7, 9 and 10 run in a second process of this script
 (``--lane``, its output printed when it ends) while this one runs
 ``[serve:proxy]``, 8 and ``[moe]``: the two lanes share no state, each path counts
 its launches in its own processes, and their wall times and step times
@@ -1340,9 +1364,10 @@ def _flash_line(t: dict) -> str:
 
 def phase_flash_timing(serve_launches: int) -> dict:
     """The forward kernel at one layer of ``[serve]``'s prefill (q (2, 14,
-    8192, 64), k = v (2, 2, 8192, 64)), the row of the JSON line, and at
-    one layer of ``[moe]``'s (q = k = v (2, 16, 8192, 128)), the row's
-    ``hd128``."""
+    8192, 64), k = v (2, 2, 8192, 64)), the row of the JSON line, at one
+    layer of ``[moe]``'s (q = k = v (2, 16, 8192, 128)), the row's
+    ``hd128``, and at one application of ``[hybrid]``'s shared block
+    (q = k = v (2, 32, 8192, 64), MHA), the row's ``mha64``."""
     t = _flash_timed(SERVE_BATCH, 14, 2, PROMPT, 64, reps=10, plain_reps=2)
     print(_flash_line(t), flush=True)
     row = {
@@ -1356,12 +1381,15 @@ def phase_flash_timing(serve_launches: int) -> dict:
     }
     wide = _flash_timed(SERVE_BATCH, 16, 16, PROMPT, 128, reps=10, plain_reps=1)
     print(_flash_line(wide), flush=True)
-    row["hd128"] = {k: wide[k] for k in ("q", "ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "library_det_ms",
-                                         "library_free_ms", "max_abs_err")}
-    if not (t["tol_ratio"] <= 1 and wide["tol_ratio"] <= 1):
+    mha = _flash_timed(SERVE_BATCH, 32, 32, PROMPT, 64, reps=10, plain_reps=1)
+    print(_flash_line(mha), flush=True)
+    keys = ("q", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_det_ms",
+            "library_free_ms", "max_abs_err")
+    row["hd128"] = {k: wide[k] for k in keys}
+    row["mha64"] = {k: mha[k] for k in keys}
+    if not (t["tol_ratio"] <= 1 and wide["tol_ratio"] <= 1 and mha["tol_ratio"] <= 1):
         raise SystemExit(f"flash_attention disagrees with plain at serve shapes: "
-                         f"{t['max_abs_err']}, {wide['max_abs_err']}")
+                         f"{t['max_abs_err']}, {wide['max_abs_err']}, {mha['max_abs_err']}")
     return row
 
 
@@ -2777,6 +2805,308 @@ def _clock(tag: str):
     print(f"{time.strftime('%H:%M:%S')} pid={os.getpid()} {line}", file=sys.stderr, flush=True)
 
 
+# [hybrid]: zamba2-1.2b at full width, cut to HYBRID_LAYERS of its 38 (two
+# applications of the shared block, after layers 6 and 12; 4.40 GB of
+# state under AdamW: a cut for lane 2's time, PERF.md §4); then
+# mamba2-130m served at full size from a fresh init
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_STEPS = "zamba2-1.2b", 12, 6
+SSM_ARCH = "mamba2-130m"
+HYBRID_LOGIT_CHUNK = 512  # positions per logits block in the f32 check
+
+
+def _ssm_served_check(tag: str, card: str, cfg, srv) -> None:
+    """The serve CLI's result ``srv`` on an SSM or hybrid model, held to
+    forwards over the same tokens. The prefill's last logits must equal a
+    forward over the prompt at its last position bit for bit. The served
+    logits (the prefill's, then 31 decode steps') are held to the f32
+    upcast's forward over the prompt and the first 31 served tokens
+    (teacher forcing), zero-padded after them to a length the SSD's chunks
+    and the flash blocks divide (every layer is causal: the padding moves
+    no earlier position): no further from it than the bf16 forward lies
+    from the f32 one at any prompt position, and every position whose top
+    two f32 logits lie more than twice that difference apart picks the same
+    token."""
+    from repro_torch.models import hybrid as hyb
+    from repro_torch.models.layers import logits_from_embed
+    from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
+
+    params, prompt, logits = srv["params"], srv["prompt"], srv["logits"]
+    B = prompt.shape[0]
+    with torch.device("meta"):
+        module = hyb.Hybrid(cfg)
+    n = PROMPT + GEN - 1
+    unit = (math.lcm(cfg.ssm_chunk, cfg.attn_block_q, cfg.attn_block_k) if cfg.attn_every
+            else cfg.ssm_chunk)
+    served = torch.from_numpy(srv["tokens"]).to(prompt.device, torch.int32)
+    seq = torch.cat([prompt, served[:, :-1],
+                     prompt.new_zeros((B, -(-n // unit) * unit - n))], dim=1)
+    flat, treedef = flatten_with_paths(params)
+    params32 = unflatten_from_paths(treedef, {p: t.float() for p, t in flat.items()})
+    embed, embed32 = params["embed"], params32["embed"]
+    with torch.no_grad():
+        h = hyb.hidden_forward(module, params, prompt)[0]
+        prefill_same = torch.equal(logits_from_embed(embed, h[:, -1:])[:, 0], logits[:, 0])
+        del h
+        h16 = hyb.hidden_forward(module, params, seq)[0]
+        h32 = hyb.hidden_forward(module, params32, seq)[0]
+        tol = 0.0
+        for s0 in range(0, PROMPT, HYBRID_LOGIT_CHUNK):
+            s1 = s0 + HYBRID_LOGIT_CHUNK
+            tol = max(tol, float((logits_from_embed(embed, h16[:, s0:s1])
+                                  - logits_from_embed(embed32, h32[:, s0:s1])).abs().max()))
+        want = logits_from_embed(embed, h16[:, PROMPT - 1 : n])
+        truth = logits_from_embed(embed32, h32[:, PROMPT - 1 : n])
+    del h16, h32, params32
+    err = float((logits - truth).abs().max())
+    top2 = truth.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = served == truth.argmax(dim=-1)
+    print(f"[{tag}] {card} prefill_last_logits_bitwise_equal_to_forward_over_prompt="
+          f"{prefill_same} teacher_forced seq={seq.shape[1]} (prompt + {GEN - 1} served, "
+          f"padded) served_vs_f32={err:.4g} (tol {tol:.4g} = bf16-vs-f32 forward over the "
+          f"prompt) served_vs_bf16_forward={float((logits - want).abs().max()):.4g} "
+          f"max_abs_logit={float(truth.abs().max()):.4g} "
+          f"greedy_agree={int(agree.sum())}/{agree.numel()} "
+          f"decided_agree={int((agree & decided).sum())}/{int(decided.sum())}", flush=True)
+    if not prefill_same:
+        raise SystemExit(f"[{tag}] the prefill's last logits differ from the forward's")
+    if not (err <= tol and bool(agree[decided].all())):
+        raise SystemExit(f"[{tag}] served logits disagree with the teacher-forced forward")
+
+
+def phase_hybrid(card: str) -> dict:
+    """The SSM and hybrid families on the card (``[hybrid]``): zamba2-1.2b
+    at full width (d_model 2048, 64 SSD heads x 64, state 64, conv 4, chunk
+    256; the shared block 32 x 64 MHA with a SwiGLU d_ff 8192; vocab
+    32,000, bf16 with the f32 ``A_log``, ``D`` and ``dt_bias``), 12 of its
+    38 layers, the shared block after layers 6 and 12.
+
+    The train CLI: batch 4, seq 512, the config's 4 microbatches and
+    ``remat="dots"`` (each mamba layer and shared-block application
+    recomputed whole, as the reference's), 6 steps, fork checkpoints at 2,
+    4 and 6 (2 and 4 each their buffer's first sync: no digest; 6 one
+    grouped ``chunk_digest`` launch), codec none, 1 MiB chunks; per step
+    its ms, peak GB, loss, whether every gradient leaf is finite (read
+    before the optimizer) and the largest decay exponent summed over a
+    chunk, max over heads, chunks and layers of |A| * sum(dt) (the
+    reference's gradient overflows past about 88); the step-6 image's
+    digests those of the run's state, the grouped digest over the state
+    bitwise that of the plain version leaf by leaf; step 4 restored and run
+    to 6 bitwise equal to it. The serve CLI on the step-6 image: lazy
+    restore, batch 2, an 8,192-token prompt (one flash launch per
+    application of the shared block: 2, on ``wgmma`` at head dim 64), 32
+    greedy tokens; eager restore the same bits; the prefill and decode
+    held to forwards (:func:`_ssm_served_check`). Then the serve CLI on
+    mamba2-130m at full size (24 layers, state 128) from a fresh init,
+    the same prompt and tokens: no flash launch, the same checks."""
+    import dataclasses
+
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.checkpoint.manifest import load_manifest
+    from repro_torch.configs import get_config
+    from repro_torch.core import RestoreManager
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import chunk_digest, ops, ref
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import hybrid as hyb
+    from repro_torch.models import mamba2
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.runtime.steps import batch_to_device
+    from repro_torch.utils.tree import flatten_with_paths, tree_equal
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), num_layers=HYBRID_LAYERS)
+    apps = hyb.n_shared_apps(cfg)
+    steps = []
+    make, cli_config = train.make_train_step, train.get_config
+
+    def counting_make(model, optimizer, **kw):
+        finite = []
+
+        def update(grads, *args):  # every gradient leaf finite, before the step uses it
+            finite.append(torch.stack([g.isfinite().all()
+                                       for g in flatten_with_paths(grads)[0].values()]).all())
+            return optimizer.update(grads, *args)
+
+        fn = make(model, Optimizer(init=optimizer.init, update=update), **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            c0 = _counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with mamba2.decay_log() as log:
+                out = fn(state, batch)
+                torch.cuda.synchronize()
+            c1 = _counts()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              loss=float(out[1]["loss"]), finite=bool(finite[-1]),
+                              decay=float(torch.stack(log).max()), calls=len(log),
+                              digests_at=(c0["chunk_digest"], c1["chunk_digest"]),
+                              **{k: c1[k] - c0[k] for k in
+                                 ("chunk_digest", "flash_attention", "flash_attention_bwd")}))
+            return out
+
+        return step
+
+    argv = ["--arch", HYBRID_ARCH, "--steps", str(HYBRID_STEPS), "--batch", str(BATCH),
+            "--seq", str(SEQ), "--lr", str(LR), "--ckpt-every", "2", "--backend", "fork",
+            "--codec", "none", "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-hybrid-") as tmp:
+        store = os.path.join(tmp, "ckpt")
+        train.make_train_step = counting_make
+        train.get_config = lambda name, smoke=False: cfg  # the CLI at 12 of 38 layers
+        try:
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = train.train(argv + ["--ckpt-dir", store])
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        finally:
+            train.make_train_step = make
+            train.get_config = cli_config
+        # digest launches after each step, up to the next step's start (or
+        # the run's end): that step's checkpoint sync, where it has one
+        after = [b - a[1] for a, b in zip(
+            [st["digests_at"] for st in steps],
+            [st["digests_at"][0] for st in steps[1:]] + [counts["chunk_digest"]])]
+        syncs = after[1::2]
+        flat = flatten_with_paths(out["state"]["device"])[0]
+        state_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+        n_params = sum(t.numel() for p, t in flat.items() if p.startswith("params/"))
+        for i, st in enumerate(steps, 1):
+            print(f"[hybrid] {card} step={i} step_ms={st['ms']:.1f} peak_gb={st['peak_gb']:.2f} "
+                  f"loss={st['loss']:.4f} grads_finite={st['finite']} max_chunk_decay_exponent="
+                  f"{st['decay']:.3f} (over {st['calls']} SSD calls) launches: "
+                  f"digest={st['chunk_digest']} flash={st['flash_attention']} "
+                  f"flash_bwd={st['flash_attention_bwd']}", flush=True)
+        for r, n in zip(out["results"], syncs):
+            print(f"[hybrid] {card} ckpt step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
+                  f"persist_ms={r.persist_s * 1e3:.1f} digest_ms={r.digest_us / 1e3:.1f} "
+                  f"digest_launches={n} {_fetch_split(r)} synced={r.chunks_synced} "
+                  f"written={r.chunks_written}", flush=True)
+        m = out["metrics"]
+        print(f"[hybrid] arch={HYBRID_ARCH} layers={cfg.num_layers} of 38 d_model={cfg.d_model} "
+              f"ssd_heads={cfg.ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state} "
+              f"chunk={cfg.ssm_chunk} shared_block_apps={apps} microbatches={cfg.microbatches} "
+              f"remat={cfg.remat} params={n_params} state_bytes={state_bytes} "
+              f"({len(flat)} leaves) steps={out['final_step']} wall_s={wall:.1f} "
+              f"loss={m['loss']:.4f} grad_norm={m['grad_norm']:.4f} digest_launches_per_sync="
+              f"{syncs} launches={ {k: counts[k] for k in ('chunk_digest', 'flash_attention', 'flash_attention_bwd')} }",
+              flush=True)
+        if out["final_step"] != HYBRID_STEPS or not all(map(math.isfinite, m.values())) or not all(
+                math.isfinite(st["loss"]) and st["finite"] for st in steps):
+            raise SystemExit(f"[hybrid] did not train cleanly: {out['final_step']} {m} {steps}")
+        if [r.step for r in out["results"]] != [2, 4, 6]:
+            raise SystemExit(f"[hybrid] images: {[r.step for r in out['results']]}")
+        if after != [0] * (HYBRID_STEPS - 1) + [-(-len(flat) // chunk_digest.CAPACITY)] or any(
+                st[k] for st in steps
+                for k in ("chunk_digest", "flash_attention", "flash_attention_bwd")):
+            raise SystemExit(f"[hybrid] launches: after each step {after}, per step {steps}")
+
+        # the step-6 image holds the run's state; the grouped digest over it
+        # (the kernel's) bitwise that of the plain version, leaf by leaf
+        manifest = load_manifest(store, HYBRID_STEPS)
+        stored = {path: [c.digest for sh in lv.shards for c in sh.chunks]
+                  for path, lv in manifest.leaves.items()}
+        image_same = ops.tree_chunk_digests(out["state"], 1 << 20) == stored
+        tensors = list(flat.values())
+        digest_ms = _time_ms(lambda: chunk_digest.chunk_digest_table(tensors, 1 << 20)[0], 5)
+        table = chunk_digest.chunk_digest_table(tensors, 1 << 20)[0]
+        plain = torch.cat([ref.chunk_digests_plain(t, 1 << 20) for t in tensors])
+        digest_equal = torch.equal(table, plain)
+        print(f"[hybrid] {card} digest over the state: kernel_ms={digest_ms:.3f} "
+              f"bound_ms={state_bytes / MEM_BYTES_PER_S * 1e3:.3f} (bytes) "
+              f"rows={table.shape[0]} bitwise_equal_to_plain={digest_equal}", flush=True)
+        del tensors, table, plain, flat
+        torch.cuda.empty_cache()
+        if not digest_equal:
+            raise SystemExit("[hybrid] the digest kernel disagrees with its plain version")
+        device = out["state"]["device"]["step"].device  # the card the run trained on
+        run = build_training(cfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=HYBRID_STEPS,
+                             device=device)
+        t_restore = time.perf_counter()
+        state, _ = RestoreManager(ChunkStore(store)).restore(step=4, device_for=run.device_for)
+        t_restore = time.perf_counter() - t_restore
+        data = SyntheticBatches.from_state(cfg, batch=BATCH, seq_len=SEQ,
+                                           state=state["host"]["data"])
+        for step in (5, 6):
+            state["device"], _ = run.step_fn(state["device"], batch_to_device(next(data), device))
+            state["host"]["step"] = np.int64(step)
+            state["host"]["data"] = data.state()
+        torch.cuda.synchronize()
+        same = tree_equal(state, out["state"])
+        print(f"[hybrid] step-6 image digests equal the run's state: {image_same}; restored "
+              f"step 4 in {t_restore:.1f} s, ran 5..6: bitwise_equal to the run's step-6 "
+              f"state={same}", flush=True)
+        if not image_same:
+            raise SystemExit("[hybrid] the stored step-6 image differs from the run")
+        if not same:
+            raise SystemExit("[hybrid] the restart diverged from the step-6 state")
+        del state, out, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serving the step-6 image at its depth
+        argv = ["--arch", HYBRID_ARCH, "--ckpt-dir", store, "--batch", str(SERVE_BATCH),
+                "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+        _zero_counts()
+        with mamba2.decay_log() as log:
+            srv = serve.serve(argv + ["--lazy"])
+        scounts = _counts()
+        flash = scounts["flash_attention"]
+        print(f"[hybrid] {card} serve lazy restore_s={srv['restore_s']:.3f} "
+              f"ttft_s={srv['ttft_s']:.3f} decode_tok_s={srv['decode_tok_s']:.1f} "
+              f"step={srv['step']} flash_attention_launches={flash} "
+              f"by_route={scounts['flash_attention_by_route']} "
+              f"chunk_digest_launches={scounts['chunk_digest']} prefill_max_chunk_decay_"
+              f"exponent={float(torch.stack(log).max()):.3f}", flush=True)
+        del log
+        logits = srv["logits"]
+        if srv["step"] != HYBRID_STEPS or flash != apps or \
+                scounts["flash_attention_by_route"]["wgmma"] != flash:
+            raise SystemExit(f"[hybrid] serve: step {srv['step']}, flash launches {scounts}")
+        if logits.shape != (SERVE_BATCH, GEN, cfg.vocab_size) or not bool(
+                logits.isfinite().all()):
+            raise SystemExit(f"[hybrid] served logits: {tuple(logits.shape)}")
+        eager = serve.serve(argv)
+        eager_same = bool(np.array_equal(eager["tokens"], srv["tokens"])
+                          and torch.equal(eager["logits"], logits))
+        print(f"[hybrid] {card} serve eager restore_s={eager['restore_s']:.3f} "
+              f"ttft_s={eager['ttft_s']:.3f} decode_tok_s={eager['decode_tok_s']:.1f} "
+              f"bitwise_equal_to_lazy={eager_same}", flush=True)
+        del eager
+        if not eager_same:
+            raise SystemExit("[hybrid] eager and lazy serving disagree")
+    _ssm_served_check("hybrid", card, cfg, srv)
+    del srv, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the attention-free path: mamba2-130m at full size, a fresh init
+    ssm_cfg = get_config(SSM_ARCH)
+    _zero_counts()
+    srv = serve.serve(["--arch", SSM_ARCH, "--batch", str(SERVE_BATCH),
+                       "--prompt-len", str(PROMPT), "--gen", str(GEN)])
+    ssm_counts = _counts()
+    n_ssm = sum(t.numel() for t in flatten_with_paths(srv["params"])[0].values())
+    print(f"[hybrid] {card} {SSM_ARCH} layers={ssm_cfg.num_layers} d_model={ssm_cfg.d_model} "
+          f"state={ssm_cfg.ssm_state} params={n_ssm} serve fresh init_s={srv['restore_s']:.3f} "
+          f"ttft_s={srv['ttft_s']:.3f} decode_tok_s={srv['decode_tok_s']:.1f} "
+          f"flash_attention_launches={ssm_counts['flash_attention']}", flush=True)
+    if ssm_counts["flash_attention"] or srv["logits"].shape != (
+            SERVE_BATCH, GEN, ssm_cfg.vocab_size) or not bool(srv["logits"].isfinite().all()):
+        raise SystemExit(f"[hybrid] {SSM_ARCH} serve: {ssm_counts}, "
+                         f"{tuple(srv['logits'].shape)}")
+    _ssm_served_check("hybrid", card, ssm_cfg, srv)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"chunk_digest": counts["chunk_digest"], "flash_attention": flash,
+                         "flash_attention_bwd": counts["flash_attention_bwd"]}}
+
+
 # [cluster] and [cluster:proxy] train 2 of the train program's 24 layers
 # (full width), cuts for the script's time (PERF.md §4)
 CLUSTER_SPEC = dict(UVM_SPEC, num_layers=2)
@@ -3181,8 +3511,9 @@ def phase_cluster_proxy(card: str) -> dict:
 
 
 def lane_child(cfg: dict) -> int:
-    """``[proxy]`` and the cluster phases, in a process of their own that
-    the script runs beside its ``[serve:proxy]`` and ``[uvm]``: each path
+    """``[proxy]``, the cluster phases and ``[hybrid]``, in a process of
+    their own that the script runs beside its ``[serve:proxy]``, ``[uvm]``
+    and ``[moe]``: each path
     counts its launches where it runs (this process, its proxies, its
     ranks), none shares state with the other lane, and the card holds
     both. Writes each path's launches to ``cfg["out"]`` as JSON."""
@@ -3197,10 +3528,15 @@ def lane_child(cfg: dict) -> int:
     with _clock("cluster"):
         clustered = {"launches": phase_cluster(card)}
         clustered.update(phase_cluster_proxy(card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _clock("hybrid"):
+        hybrided = phase_hybrid(card)
     with open(cfg["out"], "w") as f:
         json.dump({"proxy": proxied["launches"], "cluster": clustered["launches"],
                    "cluster_proxy": clustered["launches_proxy"],
-                   "cluster_remote": clustered["launches_remote"]}, f)
+                   "cluster_remote": clustered["launches_remote"],
+                   "hybrid": hybrided["launches"]}, f)
     return 0
 
 
@@ -3220,10 +3556,10 @@ def _lane_result(lane, log_path: str, out_path: str, t_script: float) -> dict:
         sys.stdout.write(f.read())
     sys.stdout.flush()
     if lane.returncode is None:
-        raise SystemExit(f"the [proxy]/[cluster] lane passed {SCRIPT_BUDGET_S:.0f} s "
+        raise SystemExit(f"the [proxy]/[cluster]/[hybrid] lane passed {SCRIPT_BUDGET_S:.0f} s "
                          f"into the script")
     if lane.returncode != 0:
-        raise SystemExit(f"the [proxy]/[cluster] lane failed ({lane.returncode})")
+        raise SystemExit(f"the [proxy]/[cluster]/[hybrid] lane failed ({lane.returncode})")
     with open(out_path) as f:
         return json.load(f)
 
@@ -3340,6 +3676,7 @@ def main() -> int:
         row["launches_cluster_proxy"] = laned["cluster_proxy"].get(row["name"])
         row["launches_cluster_remote"] = laned["cluster_remote"].get(row["name"])
         row["launches_moe"] = moed["launches"][row["name"]]
+        row["launches_hybrid"] = laned["hybrid"][row["name"]]
     print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Architecture registry: ``--arch <id>`` ids as the reference names them.
 
 Only architectures whose model code is ported to PyTorch are listed: the
-dense and the MoE text transformers. Their configs are the reference's,
-field for field; qwen2-0.5b trains on one card at full size, and
-moonshot-v1-16b-a3b at full width (cut in depth); the others' full sizes
-need the sharding the port does not have yet (``runtime/sharding.py``).
+dense and the MoE text transformers, the SSM model (mamba2-130m) and the
+hybrid (zamba2-1.2b). Their configs are the reference's, field for field;
+qwen2-0.5b trains on one card at full size, mamba2-130m serves at full
+size, moonshot-v1-16b-a3b and zamba2-1.2b train at full width (cut in
+depth); the others' full sizes need the sharding the port does not have
+yet (``runtime/sharding.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ _MODULES = {
     "gemma-2b": "repro_torch.configs.gemma_2b",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 

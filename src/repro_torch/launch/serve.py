@@ -7,7 +7,9 @@ there is no card, and the CPU runs only when asked for). With ``--lazy``
 the params materialize leaf by leaf with exponential read-ahead (paper
 §4.2). A prompt of at least ``attn_chunked_threshold`` tokens (4096 at
 full width) prefills through the chunked attention lowering, which on the
-card is the hand-written flash kernel, in every layer.
+card is the hand-written flash kernel, in every attention layer: every
+layer of a transformer, every application of a hybrid's shared block
+(none in the pure SSM model).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --ckpt-dir /tmp/ckpt --lazy --batch 2 --prompt-len 8192 --gen 32
@@ -28,7 +30,8 @@ device.
         --ckpt-dir /tmp/ckpt --lazy --device-runner proxy \\
         --proxy-endpoint 127.0.0.1:7070                           # machine A
 
-Only dense text archs serve, as ``models.build`` decides.
+The text archs serve (dense, MoE, SSM and hybrid), as ``models.build``
+decides.
 """
 from __future__ import annotations
 

@@ -31,6 +31,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (out * (1.0 + w.float())).to(x.dtype)
 
 
+def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's norm: RMSNorm(x * silu(z)), the gate in f32 rounded to x's
+    dtype before the product."""
+    return rmsnorm(x * F.silu(z.float()).to(x.dtype), w, eps)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings (half-split convention)
 # ---------------------------------------------------------------------------

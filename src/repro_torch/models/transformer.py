@@ -25,9 +25,9 @@ batch dims and recomputes the rest. Remat changes memory, never values.
 The forward also gives the MoE layers' summed router aux loss
 (``return_aux``; 0 for a dense model), which the loss adds.
 
-Not ported: ``prefix_len`` (prefix-LM masking; it belongs with the
-multimodal models that use it), the SSM and hybrid families and the
-frontends.
+The SSM and hybrid families are ``models/hybrid.py``. Not ported:
+``prefix_len`` (prefix-LM masking; it belongs with the multimodal models
+that use it) and the vision and audio frontends.
 """
 from __future__ import annotations
 
@@ -269,11 +269,13 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family not in ("dense", "moe") or cfg.frontend != "none":
+        if cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family (frontend={cfg.frontend}) "
-                "is not ported to PyTorch yet; dense and moe text transformers are"
+                f"{cfg.name}: the {cfg.frontend} frontend is not ported to PyTorch yet"
             )
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"{cfg.name}: the Transformer runs the dense and moe "
+                             f"families; {cfg.family} runs in models/hybrid.py")
         self.cfg = cfg
         dtype = torch_dtype(cfg.param_dtype)
         self.embed = _param(cfg.vocab_size, cfg.d_model, dtype=dtype)

@@ -1,5 +1,5 @@
-"""Model zoo: one API over the ported families (dense and MoE text
-transformers).
+"""Model zoo: one API over the ported families (the dense and MoE text
+transformers, the SSM and hybrid models).
 
 ``build(cfg)`` returns a ``Model`` whose functions take the params as a
 nested dict of tensors (the checkpointed state), like the reference's:
@@ -23,6 +23,7 @@ from typing import Callable
 import torch
 from torch.func import functional_call
 
+from repro_torch.models import hybrid as hyb
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import logits_from_embed
@@ -130,10 +131,42 @@ def _build_dense_or_moe(cfg: ModelConfig) -> Model:
     )
 
 
-def build(cfg: ModelConfig) -> Model:
-    if cfg.family in ("dense", "moe") and cfg.frontend == "none":
-        return _build_dense_or_moe(cfg)
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family (frontend={cfg.frontend}) is "
-        "not ported to PyTorch yet"
+def _build_ssm_or_hybrid(cfg: ModelConfig) -> Model:
+    with torch.device("meta"):
+        module = hyb.Hybrid(cfg)
+
+    def loss(params, batch):
+        h, aux = hyb.hidden_forward(module, params, batch["inputs"])
+        if cfg.ce_chunk_tokens:
+            l, ce = chunked_lm_xent(
+                h, params["embed"], batch["targets"], chunk_tokens=cfg.ce_chunk_tokens
+            )
+        else:
+            l, ce = softmax_xent(logits_from_embed(params["embed"], h), batch["targets"])
+        return l + aux, {"loss": l, "ce": ce, "aux": aux}
+
+    return Model(
+        cfg=cfg,
+        init=lambda generator, device=None: hyb.init_params(cfg, generator, device),
+        loss=loss,
+        forward=lambda params, batch: hyb.lm_forward(module, params, batch["inputs"])[0],
+        prefill=lambda params, batch, cache_len: hyb.prefill(
+            module, params, batch["inputs"], cache_len
+        ),
+        decode=lambda params, cache, tokens: hyb.decode_step(module, params, cache, tokens),
+        init_cache=lambda batch, cache_len, *, device: hyb.init_cache(
+            cfg, batch, cache_len, device=device
+        ),
     )
+
+
+def build(cfg: ModelConfig) -> Model:
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported to PyTorch yet"
+        )
+    if cfg.family in ("ssm", "hybrid"):
+        return _build_ssm_or_hybrid(cfg)
+    if cfg.family in ("dense", "moe"):
+        return _build_dense_or_moe(cfg)
+    raise ValueError(f"unknown family {cfg.family}")

@@ -296,9 +296,11 @@ class DecodeArch(_TorchProgram):
     """Greedy batched decode as a replayable step program — the *serving*
     workload proxied (``launch/serve.py --device-runner proxy``).
 
-    Device state is ``{params, cache: {k, v, pos}, toks}``, the reference's
-    tree leaf for leaf: ``toks`` is the (B, P+G) int32 token buffer holding
-    the deterministic synthetic prompt in its first P positions, and
+    Device state is ``{params, cache, toks}``, the reference's tree leaf
+    for leaf: ``cache`` is the model's whole cache tree (``{k, v, pos}``
+    for a transformer; the SSM states beside the shared block's k/v for a
+    hybrid), ``toks`` the (B, P+G) int32 token buffer holding the
+    deterministic synthetic prompt in its first P positions, and
     ``cache/pos`` a 0-d int32 tensor (the model's own decode takes a
     Python int). Step ``n`` feeds ``toks[:, n-1]`` through one decode step
     at position ``n - 1`` (known on the host: no device read per step),
@@ -368,14 +370,14 @@ class DecodeArch(_TorchProgram):
 
     def step(self, d, step):
         n = int(step)
-        cache = {"k": d["cache"]["k"], "v": d["cache"]["v"], "pos": n - 1}
+        cache = dict(d["cache"], pos=n - 1)
         with torch.no_grad():
             logits, cache = self.model.decode(d["params"], cache, d["toks"][:, n - 1])
         nxt = logits.argmax(dim=-1).to(torch.int32)
         toks = d["toks"]
         if self.prompt_len <= n < self.total:
             toks[:, n] = nxt
-        new_cache = {"k": cache["k"], "v": cache["v"], "pos": d["cache"]["pos"] + 1}
+        new_cache = dict(cache, pos=d["cache"]["pos"] + 1)
         # tok0 stays a device scalar: read on the host only at a SYNC
         return ({"params": d["params"], "cache": new_cache, "toks": toks},
                 {"tok0": nxt[0].to(torch.float32)})

@@ -67,8 +67,7 @@ def test_config_is_the_reference_and_registered(name):
         ref_get_config(name, smoke=True))
 
 
-@pytest.mark.parametrize("name", ["mamba2-130m", "zamba2-1.2b", "paligemma-3b",
-                                  "musicgen-medium"])
+@pytest.mark.parametrize("name", ["paligemma-3b", "musicgen-medium"])
 def test_unported_families_still_raise_naming_the_family(name):
     ref = ref_get_config(name, smoke=True)
     cfg = ModelConfig(**dataclasses.asdict(ref))
