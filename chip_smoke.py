@@ -19,9 +19,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    more leaves than one launch takes, and the 2**31-byte leaf in a group;
    the ``flash_attention`` CUDA kernel against ``flash_attention_plain``
    over the reference test's shapes (causal and not), f32 (the CUDA-core
-   route) and bf16/f16 (the tensor-core route), head dims 32/64/128, a
+   route) and bf16/f16 (the tensor-core route), head dims 32/64/128/256, a
    ``scale`` override, rows with no key (Sq > Sk), a group of 7 with ragged
-   tiles and the serve path's own shapes, with a stated tolerance per dtype
+   tiles, the prefix-LM mask (``prefix_len`` inside one key tile, across
+   tiles, with rows that have no causal key, at and past Sk, at head dims
+   64/128/256) and the serve path's own shapes, with a stated tolerance per dtype
    that must catch a dropped key tile (and the reading of a P rounded once
    to bf16, which is why the kernel splits P in two); ``[flash-bwd-sweep]``:
    the forward's row statistics m and l against
@@ -38,7 +40,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    limit scaled per 64-row tile that must hold everywhere and read the
    last rows' dq without a key tile, and the last key tile's dk without
    one head's partial, over it; ``[build]`` prints each backward kernel's
-   registers and spills (``-Xptxas -v``) and fails on a spill;
+   registers and spills (``-Xptxas -v``), and the forward's at head dim
+   256, and fails on a spill;
 3. the training path through ``repro_torch.launch.train``: qwen2-0.5b at full
    width and depth, batch 4, seq 512, 6 steps, a checkpoint every 2 steps
    with the fork persist backend. The codec is ``none`` by default, not the
@@ -87,13 +90,18 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    and its share of the bound on the ``[timing] flash`` line; a second
    line times one layer of ``[moe]``'s prefill, q = k = v (2, 16, 8192,
    128), the row's ``hd128``, a third one application of ``[hybrid]``'s
-   shared block, q = k = v (2, 32, 8192, 64), the row's ``mha64``),
+   shared block, q = k = v (2, 32, 8192, 64), the row's ``mha64``, a
+   fourth one layer of ``[multimodal]``'s paligemma prefill, q (2, 8,
+   8192, 256), k = v (2, 1, 8192, 256) with the image's 256 patches a
+   prefix, the row's ``hd256p``, against the library with the boolean
+   prefix-or-causal mask (the backend that ran named) and, for reference,
+   ``is_causal``),
    printed as
    one ``{"kernels": [...]}`` JSON line, printed at the end with each
    kernel's launches on every later path too (``launches_train_long``,
    ``launches_proxy``, ``_uvm_inline``, ``_uvm_proxy``, ``_serve_proxy``,
    ``_cluster``, ``_cluster_proxy``, ``_cluster_remote``, ``_moe``,
-   ``_hybrid``: counted where
+   ``_hybrid``, ``_multimodal``: counted where
    they ran; the backward's are null on paths counted in other processes,
    which report the digest and the forward only, at seq 512);
    ``[train:long]``: the train CLI on qwen2-0.5b at full width and depth,
@@ -252,11 +260,30 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    lies from it over the prompt; then the serve CLI on mamba2-130m at full
    size (24 layers, state 128) from a fresh init: no flash launch, the
    same checks. Lane 2, after the cluster phases;
-11. the last line: ``{"ok": true, "device": {...}}``.
+11. the multimodal family (``[multimodal]``): paligemma-3b at full width
+   (d_model 2048, 8 q heads and 1 kv head x 256, GeGLU d_ff 16,384, vocab
+   257,216 tied and scaled, ``vision_proj``, 256 patches), cut to 2 of its
+   18 layers for the script's time (7.51 GB of state under AdamW): the
+   train CLI at batch 4, 256 patches + 512 text tokens (768 positions: the
+   dense lowering, no attention kernel), ``remat="dots"``, 6 steps, fork
+   checkpoints at 2, 4 and 6, codec none (per step its ms, peak GB and
+   loss; digest launches per checkpoint [0, 0, 1]); the step-6 image's
+   digests the run's state's, the grouped digest bitwise the plain
+   version's, the step-4 image run to 6 bitwise equal; the serve CLI on
+   the step-6 image (lazy, batch 2, 256 patches + 7,936 text tokens, 32
+   greedy tokens; one ``wgmma`` flash launch per layer at head dim 256
+   with ``prefix_len`` 256, 2; eager the same bits), the prefill's last
+   logits equal to a forward over the image and the prompt bit for bit,
+   the served logits held to the f32 upcast's forward over the image, the
+   prompt and 31 served tokens; then the serve CLI on musicgen-medium at
+   full size (48 layers, 4 codebooks of 2,048) from a fresh init, 1,500
+   frames, 64 greedy frames (the dense lowering, no flash launch), the
+   same checks per codebook. Lane 2, after ``[hybrid]``;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Order and overlap: 1 to 4, 5's ``[serve]``, 6 and ``[train:long]`` run one
 after another with the card to themselves, so the kernels' times are
-taken alone. Then 7, 9 and 10 run in a second process of this script
+taken alone. Then 7, 9, 10 and 11 run in a second process of this script
 (``--lane``, its output printed when it ends) while this one runs
 ``[serve:proxy]``, 8 and ``[moe]``: the two lanes share no state, each path counts
 its launches in its own processes, and their wall times and step times
@@ -298,6 +325,7 @@ BF16_TC_OPS_PER_S = 989e12
 ARCH = "qwen2-0.5b"
 STEPS, BATCH, SEQ, LR = 6, 4, 512, 3e-4
 SERVE_BATCH, PROMPT, GEN = 2, 8192, 32
+LOGIT_CHUNK = 512  # positions per logits block in the served-vs-f32 checks
 # flash kernel vs plain version, (atol, rtol) in |got - want| <= atol +
 # rtol |want|: f32 within two sum orders (the reference test's 2e-5); bf16
 # and f16 round two f32 values that differ by a sum order to the output's
@@ -377,6 +405,15 @@ def phase_card() -> str:
     if len(report) != 14 or any(r["spill_stores"] or r["spill_loads"] for r in report):
         raise SystemExit(f"the backward's 16-bit kernels: {len(report)} of 14 reported, or "
                          f"a spill: {report}")
+    # the forward at paligemma's head dim 256: the O accumulator alone is
+    # 128 f32 registers a thread on the tensor-core route
+    wide = [r for r in _build.ptxas_report(libs[1]) if r["d"] == 256]
+    print("[build] forward at head dim 256, -Xptxas -v: " + " ".join(
+        f"{r['kernel']}<{r['dtype'] or 'f32'},{r['d']}>:regs={r['registers']},"
+        f"spill={r['spill_stores']}/{r['spill_loads']}" for r in wide), flush=True)
+    if len(wide) != 3 or any(r["spill_stores"] or r["spill_loads"] for r in wide):
+        raise SystemExit(f"the forward at head dim 256: {len(wide)} of 3 kernels reported, "
+                         f"or a spill: {wide}")
     return smi
 
 
@@ -497,12 +534,12 @@ def _plain_block(n: int) -> int:
     return max(b for b in range(1, min(n, 128) + 1) if n % b == 0)
 
 
-def _plain(q, k, v, *, causal=True, scale=None) -> torch.Tensor:
+def _plain(q, k, v, *, causal=True, scale=None, prefix_len=0) -> torch.Tensor:
     from repro_torch.kernels import ref
 
     return ref.flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_q=_plain_block(q.shape[2]),
-                                     block_k=_plain_block(k.shape[2]))
+                                     block_k=_plain_block(k.shape[2]), prefix_len=prefix_len)
 
 
 def _tol_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -512,18 +549,19 @@ def _tol_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
 
 
-def _flash_vs_plain(q, k, v, *, causal=True, scale=None):
+def _flash_vs_plain(q, k, v, *, causal=True, scale=None, prefix_len=0):
     """The kernel against the plain version: (max abs error, plain output)."""
     from repro_torch.kernels import flash_attention
 
-    got = flash_attention.flash_attention(q, k, v, causal=causal, scale=scale)
-    want = _plain(q, k, v, causal=causal, scale=scale)
+    got = flash_attention.flash_attention(q, k, v, causal=causal, scale=scale,
+                                          prefix_len=prefix_len)
+    want = _plain(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
     if got.dtype != q.dtype or got.shape != q.shape:
         raise SystemExit(f"flash_attention: got {got.dtype} {tuple(got.shape)}")
     atol, rtol = FLASH_TOL[q.dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     Sq, Sk = q.shape[2], k.shape[2]
-    if causal and Sq > Sk:  # rows with no key: the mean of v over all Sk
+    if causal and Sq > Sk and not prefix_len:  # rows with no key: the mean of v over all Sk
         mean = v.float().mean(dim=2).repeat_interleave(q.shape[1] // k.shape[1], dim=1)
         torch.testing.assert_close(
             got[:, :, : Sq - Sk].float(),
@@ -574,6 +612,16 @@ def phase_flash_sweep() -> None:
         (1, 2, 1, 256, 128, 64),                            # Sq > Sk: rows with no key
         (1, 14, 2, 200, 200, 64), (1, 14, 2, 120, 200, 64),  # group of 7, ragged tiles
     ]
+    # the prefix-LM mask (PaliGemma's image) and head dim 256, both routes:
+    # (B, Hq, Hkv, Sq, Sk, D, prefix_len) inside one key tile, across tiles,
+    # with rows that have no causal key, ragged tiles, at or past Sk
+    prefixed = [
+        (1, 4, 2, 256, 256, 64, 16), (1, 14, 2, 200, 200, 64, 130),
+        (1, 2, 1, 256, 128, 64, 40), (1, 8, 1, 320, 320, 128, 96),
+        (1, 2, 1, 200, 120, 128, 200), (1, 8, 1, 256, 256, 256, 64),
+        (2, 8, 1, 384, 384, 256, 256), (1, 4, 2, 200, 200, 256, 70),
+        (1, 2, 1, 256, 128, 256, 5), (1, 8, 1, 256, 256, 256, 0),
+    ]
     worst = {}
     cases = 0
     for dtype in FLASH_TOL:
@@ -582,6 +630,14 @@ def phase_flash_sweep() -> None:
                 err, _ = _flash_vs_plain(*_flash_inputs(*shape, dtype, gen), causal=causal)
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
                 cases += 1
+        for *shape, prefix in prefixed:
+            err, _ = _flash_vs_plain(*_flash_inputs(*shape, dtype, gen), prefix_len=prefix)
+            worst[dtype] = max(worst[dtype], err)
+            cases += 1
+        err, _ = _flash_vs_plain(*_flash_inputs(1, 2, 1, 256, 256, 256, dtype, gen),
+                                 causal=False)
+        worst[dtype] = max(worst[dtype], err)
+        cases += 1
         err, _ = _flash_vs_plain(*_flash_inputs(1, 1, 1, 128, 128, 64, dtype, gen),
                                  scale=0.5)
         worst[dtype] = max(worst[dtype], err)
@@ -1304,10 +1360,35 @@ def phase_timing(device_state, main_launches: int) -> dict:
     return row
 
 
-def _flash_timed(B, Hq, Hkv, S, D, reps: int, plain_reps: int) -> dict:
-    """The forward kernel at one prefill layer's shape (bf16, causal): its
-    ms, the plain version's, the library's fused attention with and without
-    deterministic algorithms, the bound and the error against plain."""
+def _causal_pairs(S: int, prefix: int = 0) -> int:
+    """The (row, key) pairs a causal call over S positions computes, with
+    the first ``prefix`` keys open to every row: P^2 + (S(S+1) - P(P+1))/2."""
+    P = min(prefix, S)
+    return P * P + (S * (S + 1) - P * (P + 1)) // 2
+
+
+def _sdpa_backend(fn) -> str:
+    """The backend of the library's fused attention that one call of ``fn``
+    ran, from its kernels' names in the profiler's trace, and the name of
+    its longest kernel."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                     key=lambda e: -e.device_time_total)
+    names = " ".join(e.key for e in kernels).lower()
+    backend = next((b for tag, b in (("cudnn", "cudnn"), ("fmha", "efficient"),
+                                     ("flash", "flash")) if tag in names), "math")
+    return f"{backend} ({kernels[0].key[:48] if kernels else 'no kernel traced'})"
+
+
+def _flash_timed(B, Hq, Hkv, S, D, reps: int, plain_reps: int, prefix: int = 0) -> dict:
+    """The forward kernel at one prefill layer's shape (bf16, causal, the
+    first ``prefix`` keys open to every row): its ms, the plain version's,
+    the library's fused attention with and without deterministic
+    algorithms, the bound and the error against plain. With a prefix the
+    library runs the same function through a boolean mask (and the
+    backend that ran is named), and, for reference only, ``is_causal``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
@@ -1315,59 +1396,87 @@ def _flash_timed(B, Hq, Hkv, S, D, reps: int, plain_reps: int) -> dict:
     q, k, v = _flash_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16,
                             torch.Generator(device="cuda").manual_seed(2))
     kernel = flash_attention.flash_attention
-    got = kernel(q, k, v)  # warm-up, and the comparison
-    want = ref.flash_attention_plain(q, k, v)
+    got = kernel(q, k, v, prefix_len=prefix)  # warm-up, and the comparison
+    want = ref.flash_attention_plain(q, k, v, prefix_len=prefix)
     err = float((got.float() - want.float()).abs().max())
     ratio = _tol_ratio(got, want)
     del got, want
-    ms = _time_ms(lambda: kernel(q, k, v), reps)
-    plain_ms = _time_ms(lambda: ref.flash_attention_plain(q, k, v), plain_reps)
+    ms = _time_ms(lambda: kernel(q, k, v, prefix_len=prefix), reps)
+    plain_ms = _time_ms(lambda: ref.flash_attention_plain(q, k, v, prefix_len=prefix),
+                        plain_reps)
     # the library's fused attention at Sq == Sk, where its top-left causal
     # mask is the right-aligned one, on the same values with v contiguous
     # (on the model's transposed view it leaves its fused path); timed
     # only, never on the path
     vc = v.contiguous()
 
-    def library():
+    def causal():
         return F.scaled_dot_product_attention(q, k, vc, is_causal=True, enable_gqa=True)
 
-    # timed with this run's deterministic algorithms (its pick then) and
-    # without them, where it may pick a faster backend; the faster is the
-    # yardstick
-    library()  # warm-up: its first call picks and loads a backend
-    library_det_ms = _time_ms(library, reps)
-    torch.use_deterministic_algorithms(False)
-    library()
-    library_free_ms = _time_ms(library, reps)
-    torch.use_deterministic_algorithms(True)
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    mask = (cols <= rows) | (cols < prefix) if prefix else None
+
+    def masked():
+        return F.scaled_dot_product_attention(q, k, vc, attn_mask=mask, enable_gqa=True)
+
+    library = masked if prefix else causal
+
+    def timed(fn):
+        """ms with this run's deterministic algorithms (its pick then) and
+        without them, where it may pick a faster backend; the faster is
+        the yardstick"""
+        fn()  # warm-up: its first call picks and loads a backend
+        det = _time_ms(fn, reps)
+        torch.use_deterministic_algorithms(False)
+        fn()
+        free = _time_ms(fn, reps)
+        backend = _sdpa_backend(fn) if prefix else None
+        torch.use_deterministic_algorithms(True)
+        return det, free, backend
+
+    library_det_ms, library_free_ms, backend = timed(library)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))  # out = q's
-    flops = 4 * B * Hq * D * S * (S + 1) / 2  # q.k and p.v over causal pairs
+    flops = 4 * B * Hq * D * _causal_pairs(S, prefix)  # q.k and p.v over unmasked pairs
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_TC_OPS_PER_S * 1e3
-    return {"q": tuple(q.shape), "kv": tuple(k.shape), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": min(library_det_ms, library_free_ms),
-            "library_det_ms": library_det_ms, "library_free_ms": library_free_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": err, "tol_ratio": ratio, "flops": flops}
+    out = {"q": tuple(q.shape), "kv": tuple(k.shape), "prefix": prefix, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": min(library_det_ms, library_free_ms),
+           "library_det_ms": library_det_ms, "library_free_ms": library_free_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "max_abs_err": err, "tol_ratio": ratio, "flops": flops}
+    if prefix:
+        det, free, _ = timed(causal)
+        out.update(library_backend=backend, library_causal_ms=min(det, free),
+                   library_causal_det_ms=det, library_causal_free_ms=free)
+    return out
 
 
 def _flash_line(t: dict) -> str:
-    return (f"[timing] flash q={t['q']} k=v={t['kv']} bf16 causal "
+    line = (f"[timing] flash q={t['q']} k=v={t['kv']} bf16 causal prefix_len={t['prefix']} "
             f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.1f} "
             f"library_ms={t['library_ms']:.4f} (deterministic {t['library_det_ms']:.4f}, "
             f"not {t['library_free_ms']:.4f}) kernel/library={t['ms'] / t['library_ms']:.3f} "
             f"bound_ms={t['bound_ms']:.4f} bound/kernel={t['bound_ms'] / t['ms']:.3f} "
             f"TFLOP/s={t['flops'] / t['ms'] / 1e9:.1f} max_abs_err={t['max_abs_err']:.3g} "
             f"({t['tol_ratio']:.3g}x the bf16 limit)")
+    if t["prefix"]:
+        line += (f" library: masked, backend {t['library_backend']}; is_causal (0.1% less "
+                 f"work, not the same function) {t['library_causal_ms']:.4f} (deterministic "
+                 f"{t['library_causal_det_ms']:.4f}, not {t['library_causal_free_ms']:.4f})")
+    return line
 
 
 def phase_flash_timing(serve_launches: int) -> dict:
     """The forward kernel at one layer of ``[serve]``'s prefill (q (2, 14,
     8192, 64), k = v (2, 2, 8192, 64)), the row of the JSON line, at one
     layer of ``[moe]``'s (q = k = v (2, 16, 8192, 128)), the row's
-    ``hd128``, and at one application of ``[hybrid]``'s shared block
-    (q = k = v (2, 32, 8192, 64), MHA), the row's ``mha64``."""
+    ``hd128``, at one application of ``[hybrid]``'s shared block (q = k = v
+    (2, 32, 8192, 64), MHA), the row's ``mha64``, and at one layer of
+    ``[multimodal]``'s paligemma prefill (q (2, 8, 8192, 256), k = v (2, 1,
+    8192, 256), the image's 256 patches a bidirectional prefix), the row's
+    ``hd256p``."""
     t = _flash_timed(SERVE_BATCH, 14, 2, PROMPT, 64, reps=10, plain_reps=2)
     print(_flash_line(t), flush=True)
     row = {
@@ -1383,13 +1492,20 @@ def phase_flash_timing(serve_launches: int) -> dict:
     print(_flash_line(wide), flush=True)
     mha = _flash_timed(SERVE_BATCH, 32, 32, PROMPT, 64, reps=10, plain_reps=1)
     print(_flash_line(mha), flush=True)
+    vlm = _flash_timed(SERVE_BATCH, 8, 1, PROMPT, 256, reps=10, plain_reps=1,
+                       prefix=MM_PATCHES)
+    print(_flash_line(vlm), flush=True)
     keys = ("q", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_det_ms",
             "library_free_ms", "max_abs_err")
     row["hd128"] = {k: wide[k] for k in keys}
     row["mha64"] = {k: mha[k] for k in keys}
-    if not (t["tol_ratio"] <= 1 and wide["tol_ratio"] <= 1 and mha["tol_ratio"] <= 1):
+    row["hd256p"] = {k: vlm[k] for k in (*keys, "prefix", "library_backend",
+                                         "library_causal_ms", "library_causal_det_ms",
+                                         "library_causal_free_ms")}
+    timed = (t, wide, mha, vlm)
+    if not all(x["tol_ratio"] <= 1 for x in timed):
         raise SystemExit(f"flash_attention disagrees with plain at serve shapes: "
-                         f"{t['max_abs_err']}, {wide['max_abs_err']}, {mha['max_abs_err']}")
+                         f"{[x['max_abs_err'] for x in timed]}")
     return row
 
 
@@ -2523,19 +2639,12 @@ def phase_moe(card: str) -> dict:
     from the f32 one there (a near-tie)."""
     import dataclasses
 
-    from repro_torch.checkpoint import ChunkStore
-    from repro_torch.checkpoint.manifest import load_manifest
     from repro_torch.configs import get_config
-    from repro_torch.core import RestoreManager
-    from repro_torch.data import SyntheticBatches
-    from repro_torch.kernels import chunk_digest, ops, ref
     from repro_torch.launch import serve, train
-    from repro_torch.launch.train import build_training
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import logits_from_embed
-    from repro_torch.runtime.steps import batch_to_device
-    from repro_torch.utils.tree import flatten_with_paths, tree_equal, unflatten_from_paths
+    from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
 
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
     cuda = torch.device("cuda", torch.cuda.current_device())
@@ -2589,11 +2698,7 @@ def phase_moe(card: str) -> dict:
         finally:
             train.make_train_step = make
             train.get_config = cli_config
-        # digest launches after each step, up to the next step's start (or
-        # the run's end): that step's checkpoint sync, where it has one
-        after = [b - a[1] for a, b in zip(
-            [st["digests_at"] for st in steps],
-            [st["digests_at"][0] for st in steps[1:]] + [counts["chunk_digest"]])]
+        after = _digests_after_steps(steps, counts)
         syncs = after[1::2]
         state_bytes = sum(t.numel() * t.element_size()
                           for t in flatten_with_paths(out["state"]["device"])[0].values())
@@ -2621,55 +2726,8 @@ def phase_moe(card: str) -> dict:
         if out["final_step"] != MOE_STEPS or not all(map(math.isfinite, m.values())) or not all(
                 math.isfinite(st[k]) for st in steps for k in ("loss", "aux", "ce")):
             raise SystemExit(f"[moe] did not train cleanly: {out['final_step']} {m}")
-        if [r.step for r in out["results"]] != [2, 4, 6]:
-            raise SystemExit(f"[moe] images: {[r.step for r in out['results']]}")
-        if after != [0] * (MOE_STEPS - 1) + [-(-leaves // chunk_digest.CAPACITY)] or any(
-                st[k] for st in steps
-                for k in ("chunk_digest", "flash_attention", "flash_attention_bwd")):
-            raise SystemExit(f"[moe] launches: after each step {after}, per step {steps}")
-
-        # the step-6 image holds the run's state: its chunk digests are the
-        # live state's (the digest kernel over the card tensors)
-        manifest = load_manifest(store, MOE_STEPS)
-        stored = {path: [c.digest for sh in lv.shards for c in sh.chunks]
-                  for path, lv in manifest.leaves.items()}
-        image_same = ops.tree_chunk_digests(out["state"], 1 << 20) == stored
-        # the grouped digest over this state, as a sync makes it (timed
-        # beside the other lane's work), held against the plain version on
-        # the same leaves: the image's digests above are the kernel's own
-        tensors = list(flatten_with_paths(out["state"]["device"])[0].values())
-        digest_ms = _time_ms(lambda: chunk_digest.chunk_digest_table(tensors, 1 << 20)[0], 5)
-        table = chunk_digest.chunk_digest_table(tensors, 1 << 20)[0]
-        plain = torch.cat([ref.chunk_digests_plain(t, 1 << 20) for t in tensors])
-        digest_equal = torch.equal(table, plain)
-        print(f"[moe] {card} digest over the state: kernel_ms={digest_ms:.3f} "
-              f"bound_ms={state_bytes / MEM_BYTES_PER_S * 1e3:.3f} (bytes) "
-              f"rows={table.shape[0]} bitwise_equal_to_plain={digest_equal}", flush=True)
-        del tensors, table, plain
-        torch.cuda.empty_cache()
-        if not digest_equal:
-            raise SystemExit("[moe] the digest kernel disagrees with its plain version")
-        run = build_training(cfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=MOE_STEPS,
-                             device=cuda)
-        t_restore = time.perf_counter()
-        state, _ = RestoreManager(ChunkStore(store)).restore(step=4, device_for=run.device_for)
-        t_restore = time.perf_counter() - t_restore
-        data = SyntheticBatches.from_state(cfg, batch=BATCH, seq_len=SEQ,
-                                           state=state["host"]["data"])
-        for step in (5, 6):
-            state["device"], _ = run.step_fn(state["device"], batch_to_device(next(data), cuda))
-            state["host"]["step"] = np.int64(step)
-            state["host"]["data"] = data.state()
-        torch.cuda.synchronize()
-        same = tree_equal(state, out["state"])
-        print(f"[moe] step-6 image digests equal the run's state: {image_same}; restored "
-              f"step 4 in {t_restore:.1f} s, ran 5..6: bitwise_equal to the run's step-6 "
-              f"state={same}", flush=True)
-        if not image_same:
-            raise SystemExit("[moe] the stored step-6 image differs from the run")
-        if not same:
-            raise SystemExit("[moe] the restart diverged from the step-6 state")
-        del state, out, run
+        _check_train_run("moe", card, cfg, store, out, steps, after, MOE_STEPS)
+        del out
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2811,7 +2869,126 @@ def _clock(tag: str):
 # mamba2-130m served at full size from a fresh init
 HYBRID_ARCH, HYBRID_LAYERS, HYBRID_STEPS = "zamba2-1.2b", 12, 6
 SSM_ARCH = "mamba2-130m"
-HYBRID_LOGIT_CHUNK = 512  # positions per logits block in the f32 check
+
+
+def _digests_after_steps(steps: list[dict], counts: dict) -> list[int]:
+    """Digest launches after each step of a train CLI run (``steps``' own
+    ``digests_at`` counts), up to the next step's start or the run's end
+    (``counts``): that step's checkpoint sync, where it has one."""
+    return [b - a[1] for a, b in zip(
+        [st["digests_at"] for st in steps],
+        [st["digests_at"][0] for st in steps[1:]] + [counts["chunk_digest"]])]
+
+
+def _check_train_run(tag: str, card: str, cfg, store: str, out: dict, steps: list[dict],
+                     after: list[int], n_steps: int) -> None:
+    """A train CLI run's images and restart, as ``[moe]``, ``[hybrid]`` and
+    ``[multimodal]`` hold them: images at 2, 4 and 6; digest launches 0
+    after every step but the last (2 and 4 are first syncs), one grouped
+    call after it, no kernel launch inside a step; the step-``n_steps``
+    image's digests those of the run's state, the grouped digest over the
+    state bitwise that of the plain version leaf by leaf; step 4 restored
+    and run to ``n_steps`` bitwise equal to the run's state."""
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.checkpoint.manifest import load_manifest
+    from repro_torch.core import RestoreManager
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import chunk_digest, ops, ref
+    from repro_torch.launch.train import build_training
+    from repro_torch.runtime.steps import batch_to_device
+    from repro_torch.utils.tree import flatten_with_paths, tree_equal
+
+    flat = flatten_with_paths(out["state"]["device"])[0]
+    if [r.step for r in out["results"]] != [2, 4, 6]:
+        raise SystemExit(f"[{tag}] images: {[r.step for r in out['results']]}")
+    if after != [0] * (n_steps - 1) + [-(-len(flat) // chunk_digest.CAPACITY)] or any(
+            st[k] for st in steps
+            for k in ("chunk_digest", "flash_attention", "flash_attention_bwd")):
+        raise SystemExit(f"[{tag}] launches: after each step {after}, per step {steps}")
+    manifest = load_manifest(store, n_steps)
+    stored = {path: [c.digest for sh in lv.shards for c in sh.chunks]
+              for path, lv in manifest.leaves.items()}
+    image_same = ops.tree_chunk_digests(out["state"], 1 << 20) == stored
+    tensors = list(flat.values())
+    state_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    digest_ms = _time_ms(lambda: chunk_digest.chunk_digest_table(tensors, 1 << 20)[0], 5)
+    table = chunk_digest.chunk_digest_table(tensors, 1 << 20)[0]
+    plain = torch.cat([ref.chunk_digests_plain(t, 1 << 20) for t in tensors])
+    digest_equal = torch.equal(table, plain)
+    print(f"[{tag}] {card} digest over the state: kernel_ms={digest_ms:.3f} "
+          f"bound_ms={state_bytes / MEM_BYTES_PER_S * 1e3:.3f} (bytes) "
+          f"rows={table.shape[0]} bitwise_equal_to_plain={digest_equal}", flush=True)
+    del tensors, table, plain, flat
+    torch.cuda.empty_cache()
+    if not digest_equal:
+        raise SystemExit(f"[{tag}] the digest kernel disagrees with its plain version")
+    device = out["state"]["device"]["step"].device  # the card the run trained on
+    run = build_training(cfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=n_steps,
+                         device=device)
+    t_restore = time.perf_counter()
+    state, _ = RestoreManager(ChunkStore(store)).restore(step=4, device_for=run.device_for)
+    t_restore = time.perf_counter() - t_restore
+    data = SyntheticBatches.from_state(cfg, batch=BATCH, seq_len=SEQ,
+                                       state=state["host"]["data"])
+    for step in range(5, n_steps + 1):
+        state["device"], _ = run.step_fn(state["device"], batch_to_device(next(data), device))
+        state["host"]["step"] = np.int64(step)
+        state["host"]["data"] = data.state()
+    torch.cuda.synchronize()
+    same = tree_equal(state, out["state"])
+    print(f"[{tag}] step-{n_steps} image digests equal the run's state: {image_same}; "
+          f"restored step 4 in {t_restore:.1f} s, ran 5..{n_steps}: bitwise_equal to the "
+          f"run's step-{n_steps} state={same}", flush=True)
+    if not image_same:
+        raise SystemExit(f"[{tag}] the stored step-{n_steps} image differs from the run")
+    if not same:
+        raise SystemExit(f"[{tag}] the restart diverged from the step-{n_steps} state")
+
+
+def _served_vs_f32(tag: str, card: str, logits, served, hidden, head, n_prompt: int,
+                   what: str) -> None:
+    """Served logits (the prefill's, then decode's; (B, G, ..., V)) against
+    the f32 upcast's teacher-forced forward: ``hidden(f32)`` gives the
+    positions' final hidden of the bf16 (False) or the f32 (True) model over
+    the prompt and the served tokens, ``head(h, f32)`` their logits. No
+    further from it than the bf16 forward lies from the f32 one at any
+    prompt position, and every served token whose top two f32 logits lie
+    more than twice that difference apart is the f32 argmax."""
+    G = logits.shape[1]
+    with torch.no_grad():
+        h16, h32 = hidden(False), hidden(True)
+        tol = 0.0
+        for s0 in range(0, n_prompt, LOGIT_CHUNK):
+            s1 = min(s0 + LOGIT_CHUNK, n_prompt)
+            tol = max(tol, float((head(h16[:, s0:s1], False)
+                                  - head(h32[:, s0:s1], True)).abs().max()))
+        want = head(h16[:, n_prompt - 1 : n_prompt - 1 + G], False)
+        truth = head(h32[:, n_prompt - 1 : n_prompt - 1 + G], True)
+    del h16, h32
+    err = float((logits - truth).abs().max())
+    top2 = truth.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
+    agree = served == truth.argmax(dim=-1)
+    print(f"[{tag}] {card} {what} teacher_forced (prompt + {G - 1} served) served_vs_f32="
+          f"{err:.4g} (tol {tol:.4g} = bf16-vs-f32 forward over the prompt) "
+          f"served_vs_bf16_forward={float((logits - want).abs().max()):.4g} "
+          f"max_abs_logit={float(truth.abs().max()):.4g} "
+          f"greedy_agree={int(agree.sum())}/{agree.numel()} "
+          f"decided_agree={int((agree & decided).sum())}/{int(decided.sum())}", flush=True)
+    if not (err <= tol and bool(agree[decided].all())):
+        raise SystemExit(f"[{tag}] {what}: served logits disagree with the teacher-forced "
+                         f"forward")
+
+
+def _f32_config(cfg):
+    return cfg.with_overrides(param_dtype="float32", compute_dtype="float32")
+
+
+def _f32(params):
+    from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
+
+    flat, treedef = flatten_with_paths(params)
+    return unflatten_from_paths(treedef, {p: t.float() for p, t in flat.items()})
 
 
 def _ssm_served_check(tag: str, card: str, cfg, srv) -> None:
@@ -2822,13 +2999,9 @@ def _ssm_served_check(tag: str, card: str, cfg, srv) -> None:
     upcast's forward over the prompt and the first 31 served tokens
     (teacher forcing), zero-padded after them to a length the SSD's chunks
     and the flash blocks divide (every layer is causal: the padding moves
-    no earlier position): no further from it than the bf16 forward lies
-    from the f32 one at any prompt position, and every position whose top
-    two f32 logits lie more than twice that difference apart picks the same
-    token."""
+    no earlier position), by :func:`_served_vs_f32`."""
     from repro_torch.models import hybrid as hyb
     from repro_torch.models.layers import logits_from_embed
-    from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
 
     params, prompt, logits = srv["params"], srv["prompt"], srv["logits"]
     B = prompt.shape[0]
@@ -2840,38 +3013,21 @@ def _ssm_served_check(tag: str, card: str, cfg, srv) -> None:
     served = torch.from_numpy(srv["tokens"]).to(prompt.device, torch.int32)
     seq = torch.cat([prompt, served[:, :-1],
                      prompt.new_zeros((B, -(-n // unit) * unit - n))], dim=1)
-    flat, treedef = flatten_with_paths(params)
-    params32 = unflatten_from_paths(treedef, {p: t.float() for p, t in flat.items()})
-    embed, embed32 = params["embed"], params32["embed"]
+    params32 = _f32(params)
     with torch.no_grad():
         h = hyb.hidden_forward(module, params, prompt)[0]
-        prefill_same = torch.equal(logits_from_embed(embed, h[:, -1:])[:, 0], logits[:, 0])
+        prefill_same = torch.equal(logits_from_embed(params["embed"], h[:, -1:])[:, 0],
+                                   logits[:, 0])
         del h
-        h16 = hyb.hidden_forward(module, params, seq)[0]
-        h32 = hyb.hidden_forward(module, params32, seq)[0]
-        tol = 0.0
-        for s0 in range(0, PROMPT, HYBRID_LOGIT_CHUNK):
-            s1 = s0 + HYBRID_LOGIT_CHUNK
-            tol = max(tol, float((logits_from_embed(embed, h16[:, s0:s1])
-                                  - logits_from_embed(embed32, h32[:, s0:s1])).abs().max()))
-        want = logits_from_embed(embed, h16[:, PROMPT - 1 : n])
-        truth = logits_from_embed(embed32, h32[:, PROMPT - 1 : n])
-    del h16, h32, params32
-    err = float((logits - truth).abs().max())
-    top2 = truth.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > 2 * err
-    agree = served == truth.argmax(dim=-1)
     print(f"[{tag}] {card} prefill_last_logits_bitwise_equal_to_forward_over_prompt="
-          f"{prefill_same} teacher_forced seq={seq.shape[1]} (prompt + {GEN - 1} served, "
-          f"padded) served_vs_f32={err:.4g} (tol {tol:.4g} = bf16-vs-f32 forward over the "
-          f"prompt) served_vs_bf16_forward={float((logits - want).abs().max()):.4g} "
-          f"max_abs_logit={float(truth.abs().max()):.4g} "
-          f"greedy_agree={int(agree.sum())}/{agree.numel()} "
-          f"decided_agree={int((agree & decided).sum())}/{int(decided.sum())}", flush=True)
+          f"{prefill_same} teacher_forced seq={seq.shape[1]} (padded)", flush=True)
     if not prefill_same:
         raise SystemExit(f"[{tag}] the prefill's last logits differ from the forward's")
-    if not (err <= tol and bool(agree[decided].all())):
-        raise SystemExit(f"[{tag}] served logits disagree with the teacher-forced forward")
+    _served_vs_f32(
+        tag, card, logits, served,
+        lambda f32: hyb.hidden_forward(module, params32 if f32 else params, seq)[0],
+        lambda h, f32: logits_from_embed((params32 if f32 else params)["embed"], h),
+        PROMPT, cfg.name)
 
 
 def phase_hybrid(card: str) -> dict:
@@ -2901,19 +3057,12 @@ def phase_hybrid(card: str) -> dict:
     the same prompt and tokens: no flash launch, the same checks."""
     import dataclasses
 
-    from repro_torch.checkpoint import ChunkStore
-    from repro_torch.checkpoint.manifest import load_manifest
     from repro_torch.configs import get_config
-    from repro_torch.core import RestoreManager
-    from repro_torch.data import SyntheticBatches
-    from repro_torch.kernels import chunk_digest, ops, ref
     from repro_torch.launch import serve, train
-    from repro_torch.launch.train import build_training
     from repro_torch.models import hybrid as hyb
     from repro_torch.models import mamba2
     from repro_torch.optim.optimizers import Optimizer
-    from repro_torch.runtime.steps import batch_to_device
-    from repro_torch.utils.tree import flatten_with_paths, tree_equal
+    from repro_torch.utils.tree import flatten_with_paths
 
     cfg = dataclasses.replace(get_config(HYBRID_ARCH), num_layers=HYBRID_LAYERS)
     apps = hyb.n_shared_apps(cfg)
@@ -2966,11 +3115,7 @@ def phase_hybrid(card: str) -> dict:
         finally:
             train.make_train_step = make
             train.get_config = cli_config
-        # digest launches after each step, up to the next step's start (or
-        # the run's end): that step's checkpoint sync, where it has one
-        after = [b - a[1] for a, b in zip(
-            [st["digests_at"] for st in steps],
-            [st["digests_at"][0] for st in steps[1:]] + [counts["chunk_digest"]])]
+        after = _digests_after_steps(steps, counts)
         syncs = after[1::2]
         flat = flatten_with_paths(out["state"]["device"])[0]
         state_bytes = sum(t.numel() * t.element_size() for t in flat.values())
@@ -2998,53 +3143,9 @@ def phase_hybrid(card: str) -> dict:
         if out["final_step"] != HYBRID_STEPS or not all(map(math.isfinite, m.values())) or not all(
                 math.isfinite(st["loss"]) and st["finite"] for st in steps):
             raise SystemExit(f"[hybrid] did not train cleanly: {out['final_step']} {m} {steps}")
-        if [r.step for r in out["results"]] != [2, 4, 6]:
-            raise SystemExit(f"[hybrid] images: {[r.step for r in out['results']]}")
-        if after != [0] * (HYBRID_STEPS - 1) + [-(-len(flat) // chunk_digest.CAPACITY)] or any(
-                st[k] for st in steps
-                for k in ("chunk_digest", "flash_attention", "flash_attention_bwd")):
-            raise SystemExit(f"[hybrid] launches: after each step {after}, per step {steps}")
-
-        # the step-6 image holds the run's state; the grouped digest over it
-        # (the kernel's) bitwise that of the plain version, leaf by leaf
-        manifest = load_manifest(store, HYBRID_STEPS)
-        stored = {path: [c.digest for sh in lv.shards for c in sh.chunks]
-                  for path, lv in manifest.leaves.items()}
-        image_same = ops.tree_chunk_digests(out["state"], 1 << 20) == stored
-        tensors = list(flat.values())
-        digest_ms = _time_ms(lambda: chunk_digest.chunk_digest_table(tensors, 1 << 20)[0], 5)
-        table = chunk_digest.chunk_digest_table(tensors, 1 << 20)[0]
-        plain = torch.cat([ref.chunk_digests_plain(t, 1 << 20) for t in tensors])
-        digest_equal = torch.equal(table, plain)
-        print(f"[hybrid] {card} digest over the state: kernel_ms={digest_ms:.3f} "
-              f"bound_ms={state_bytes / MEM_BYTES_PER_S * 1e3:.3f} (bytes) "
-              f"rows={table.shape[0]} bitwise_equal_to_plain={digest_equal}", flush=True)
-        del tensors, table, plain, flat
-        torch.cuda.empty_cache()
-        if not digest_equal:
-            raise SystemExit("[hybrid] the digest kernel disagrees with its plain version")
-        device = out["state"]["device"]["step"].device  # the card the run trained on
-        run = build_training(cfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=HYBRID_STEPS,
-                             device=device)
-        t_restore = time.perf_counter()
-        state, _ = RestoreManager(ChunkStore(store)).restore(step=4, device_for=run.device_for)
-        t_restore = time.perf_counter() - t_restore
-        data = SyntheticBatches.from_state(cfg, batch=BATCH, seq_len=SEQ,
-                                           state=state["host"]["data"])
-        for step in (5, 6):
-            state["device"], _ = run.step_fn(state["device"], batch_to_device(next(data), device))
-            state["host"]["step"] = np.int64(step)
-            state["host"]["data"] = data.state()
-        torch.cuda.synchronize()
-        same = tree_equal(state, out["state"])
-        print(f"[hybrid] step-6 image digests equal the run's state: {image_same}; restored "
-              f"step 4 in {t_restore:.1f} s, ran 5..6: bitwise_equal to the run's step-6 "
-              f"state={same}", flush=True)
-        if not image_same:
-            raise SystemExit("[hybrid] the stored step-6 image differs from the run")
-        if not same:
-            raise SystemExit("[hybrid] the restart diverged from the step-6 state")
-        del state, out, run
+        del flat  # the state's tensors go with out
+        _check_train_run("hybrid", card, cfg, store, out, steps, after, HYBRID_STEPS)
+        del out
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3101,6 +3202,258 @@ def phase_hybrid(card: str) -> dict:
                          f"{tuple(srv['logits'].shape)}")
     _ssm_served_check("hybrid", card, ssm_cfg, srv)
     del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"chunk_digest": counts["chunk_digest"], "flash_attention": flash,
+                         "flash_attention_bwd": counts["flash_attention_bwd"]}}
+
+
+# [multimodal]: paligemma-3b at full width, cut to MM_LAYERS of its 18 (7.51
+# GB of state under AdamW: a cut for lane 2's time, PERF.md §4), its image
+# of MM_PATCHES patches a bidirectional prefix; then musicgen-medium served
+# at full size from a fresh init, AUDIO_PROMPT frames (30 s of audio at
+# EnCodec's 50 Hz) of its 4 codebooks and AUDIO_GEN greedy frames
+MM_ARCH, MM_LAYERS, MM_STEPS, MM_PATCHES = "paligemma-3b", 2, 6, 256
+AUDIO_ARCH, AUDIO_PROMPT, AUDIO_GEN = "musicgen-medium", 1500, 64
+
+
+class _FlashCalls:
+    """``ops``' view of the forward kernel's module, recording each launch's
+    head dim, ``prefix_len`` and dtype before it goes to the kernel."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+    def flash_attention(self, q, k, v, **kw):
+        self.calls.append((q.shape[-1], kw.get("prefix_len", 0), str(q.dtype)))
+        return self.module.flash_attention(q, k, v, **kw)
+
+
+def phase_multimodal(card: str) -> dict:
+    """The multimodal family on the card (``[multimodal]``): paligemma-3b at
+    full width (d_model 2048, 8 q heads and 1 kv head x 256, GeGLU d_ff
+    16,384, vocab 257,216 tied and scaled by sqrt(d_model), ``vision_proj``
+    2048 x 2048, 256 patches), 2 of its 18 layers.
+
+    The train CLI: batch 4, 256 patches + 512 text tokens (768 positions:
+    the dense lowering, no flash launch), ``remat="dots"``, 6 steps, fork
+    checkpoints at 2, 4 and 6 (2 and 4 each their buffer's first sync: no
+    digest; 6 one grouped ``chunk_digest`` launch), codec none, 1 MiB
+    chunks; per step its ms, peak GB and loss; the step-6 image's digests
+    those of the run's state, the grouped digest over the state bitwise
+    that of the plain version leaf by leaf; step 4 restored and run to 6
+    bitwise equal to it. The serve CLI on the step-6 image: lazy restore,
+    batch 2, 256 patches + 7,936 text tokens (8,192 positions: the chunked
+    lowering, one flash launch a layer on ``wgmma`` at head dim 256 with
+    ``prefix_len`` 256), 32 greedy tokens; eager restore the same bits; the
+    prefill's last logits those of the forward over the prompt bit for
+    bit; the served logits held to the f32 upcast's teacher-forced forward
+    (:func:`_served_vs_f32`). Then the serve CLI on musicgen-medium at full
+    size (48 layers, 24 x 64 MHA, GELU d_ff 6,144, 4 codebooks of 2,048)
+    from a fresh init: batch 2, 1,500 frames, 64 greedy frames (the dense
+    lowering, no flash launch), the same checks per codebook."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import multimodal as mm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import logits_from_embed
+    from repro_torch.utils.tree import flatten_with_paths
+
+    cfg = dataclasses.replace(get_config(MM_ARCH), num_layers=MM_LAYERS)
+    if cfg.num_patches != MM_PATCHES:
+        raise SystemExit(f"[multimodal] {MM_ARCH} has {cfg.num_patches} patches")
+    kernels = ("chunk_digest", "flash_attention", "flash_attention_bwd")
+    steps = []
+    make, cli_config = train.make_train_step, train.get_config
+
+    def counting_make(model, optimizer, **kw):
+        fn = make(model, optimizer, **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            c0 = _counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            c1 = _counts()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              loss=float(out[1]["loss"]),
+                              digests_at=(c0["chunk_digest"], c1["chunk_digest"]),
+                              **{k: c1[k] - c0[k] for k in kernels}))
+            return out
+
+        return step
+
+    argv = ["--arch", MM_ARCH, "--steps", str(MM_STEPS), "--batch", str(BATCH),
+            "--seq", str(SEQ), "--lr", str(LR), "--ckpt-every", "2", "--backend", "fork",
+            "--codec", "none", "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-multimodal-") as tmp:
+        store = os.path.join(tmp, "ckpt")
+        train.make_train_step = counting_make
+        train.get_config = lambda name, smoke=False: cfg  # the CLI at 2 of 18 layers
+        try:
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = train.train(argv + ["--ckpt-dir", store])
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        finally:
+            train.make_train_step = make
+            train.get_config = cli_config
+        after = _digests_after_steps(steps, counts)
+        syncs = after[1::2]
+        flat = flatten_with_paths(out["state"]["device"])[0]
+        state_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+        n_params = sum(t.numel() for p, t in flat.items() if p.startswith("params/"))
+        for i, st in enumerate(steps, 1):
+            print(f"[multimodal] {card} step={i} step_ms={st['ms']:.1f} "
+                  f"peak_gb={st['peak_gb']:.2f} loss={st['loss']:.4f} launches: "
+                  f"digest={st['chunk_digest']} flash={st['flash_attention']} "
+                  f"flash_bwd={st['flash_attention_bwd']}", flush=True)
+        for r, n in zip(out["results"], syncs):
+            print(f"[multimodal] {card} ckpt step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
+                  f"persist_ms={r.persist_s * 1e3:.1f} digest_ms={r.digest_us / 1e3:.1f} "
+                  f"digest_launches={n} {_fetch_split(r)} synced={r.chunks_synced} "
+                  f"written={r.chunks_written}", flush=True)
+        m = out["metrics"]
+        print(f"[multimodal] arch={MM_ARCH} layers={cfg.num_layers} of 18 d_model={cfg.d_model} "
+              f"heads={cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} "
+              f"vocab={cfg.vocab_size} patches={cfg.num_patches} positions="
+              f"{cfg.num_patches + SEQ} remat={cfg.remat} params={n_params} "
+              f"state_bytes={state_bytes} ({len(flat)} leaves) steps={out['final_step']} "
+              f"wall_s={wall:.1f} loss={m['loss']:.4f} grad_norm={m['grad_norm']:.4f} "
+              f"digest_launches_per_sync={syncs} launches="
+              f"{ {k: counts[k] for k in kernels} }", flush=True)
+        if out["final_step"] != MM_STEPS or not all(map(math.isfinite, m.values())) or not all(
+                math.isfinite(st["loss"]) for st in steps):
+            raise SystemExit(f"[multimodal] did not train cleanly: {out['final_step']} {m} "
+                             f"{steps}")
+        del flat  # the state's tensors go with out
+        _check_train_run("multimodal", card, cfg, store, out, steps, after, MM_STEPS)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serving the step-6 image at its depth: the image and the text fill
+        # the flash lowering's 8,192 positions
+        text = PROMPT - cfg.num_patches
+        argv = ["--arch", MM_ARCH, "--ckpt-dir", store, "--batch", str(SERVE_BATCH),
+                "--prompt-len", str(text), "--gen", str(GEN)]
+        recorder = _FlashCalls(ops._flash)
+        ops._flash = recorder
+        try:
+            _zero_counts()
+            srv = serve.serve(argv + ["--lazy"])
+            scounts = _counts()
+        finally:
+            ops._flash = recorder.module
+        flash = scounts["flash_attention"]
+        print(f"[multimodal] {card} serve lazy restore_s={srv['restore_s']:.3f} "
+              f"ttft_s={srv['ttft_s']:.3f} (the prefill of {cfg.num_patches} patches + {text} "
+              f"tokens) decode_tok_s={srv['decode_tok_s']:.1f} step={srv['step']} "
+              f"flash_attention_launches={flash} by_route={scounts['flash_attention_by_route']} "
+              f"(head dim, prefix_len, dtype)={sorted(set(recorder.calls))} "
+              f"chunk_digest_launches={scounts['chunk_digest']}", flush=True)
+        logits = srv["logits"]
+        if srv["step"] != MM_STEPS or flash != MM_LAYERS or \
+                scounts["flash_attention_by_route"]["wgmma"] != flash or \
+                recorder.calls != [(256, MM_PATCHES, "torch.bfloat16")] * MM_LAYERS:
+            raise SystemExit(f"[multimodal] serve: step {srv['step']}, flash launches {scounts}, "
+                             f"calls {recorder.calls}")
+        if logits.shape != (SERVE_BATCH, GEN, cfg.vocab_size) or not bool(
+                logits.isfinite().all()):
+            raise SystemExit(f"[multimodal] served logits: {tuple(logits.shape)}")
+        eager = serve.serve(argv)
+        eager_same = bool(np.array_equal(eager["tokens"], srv["tokens"])
+                          and torch.equal(eager["logits"], logits))
+        print(f"[multimodal] {card} serve eager restore_s={eager['restore_s']:.3f} "
+              f"ttft_s={eager['ttft_s']:.3f} decode_tok_s={eager['decode_tok_s']:.1f} "
+              f"bitwise_equal_to_lazy={eager_same}", flush=True)
+        del eager
+        if not eager_same:
+            raise SystemExit("[multimodal] eager and lazy serving disagree")
+
+    # the prefill against the forward over the image and the prompt, and the
+    # served logits against the f32 upcast's forward over the image, the
+    # prompt and the served tokens, zero-padded to a length the flash
+    # blocks divide (the text is causal: the padding moves no earlier
+    # position)
+    params, patches, prompt = srv["params"], srv["patches"], srv["prompt"]
+    with torch.device("meta"):  # the f32 upcast casts the patches to f32
+        module, module32 = tfm.Transformer(cfg), tfm.Transformer(_f32_config(cfg))
+    served = torch.from_numpy(srv["tokens"]).to(prompt.device, torch.int32)
+    n = cfg.num_patches + text + GEN - 1
+    unit = math.lcm(cfg.attn_block_q, cfg.attn_block_k)
+    seq = torch.cat([prompt, served[:, :-1], prompt.new_zeros(
+        (SERVE_BATCH, -(-n // unit) * unit - n))], dim=1)
+    params32 = _f32(params)
+    with torch.no_grad():
+        h = mm.vlm_hidden(module, params, patches, prompt)[0]
+        prefill_same = torch.equal(logits_from_embed(params["embed"], h[:, -1:])[:, 0],
+                                   logits[:, 0])
+        del h
+    print(f"[multimodal] {card} {MM_ARCH} prefill_last_logits_bitwise_equal_to_forward_over_"
+          f"prompt={prefill_same} teacher_forced positions={cfg.num_patches + seq.shape[1]} "
+          f"(padded)", flush=True)
+    if not prefill_same:
+        raise SystemExit("[multimodal] the prefill's last logits differ from the forward's")
+    _served_vs_f32(
+        "multimodal", card, logits, served,
+        lambda f32: mm.vlm_hidden(module32 if f32 else module, params32 if f32 else params,
+                                  patches, seq)[0],
+        lambda h, f32: logits_from_embed((params32 if f32 else params)["embed"], h),
+        text, MM_ARCH)
+    del srv, logits, params, params32, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # musicgen-medium at full size, a fresh init: 4 codebooks a frame
+    acfg = get_config(AUDIO_ARCH)
+    _zero_counts()
+    srv = serve.serve(["--arch", AUDIO_ARCH, "--batch", str(SERVE_BATCH),
+                       "--prompt-len", str(AUDIO_PROMPT), "--gen", str(AUDIO_GEN)])
+    acounts = _counts()
+    params, prompt, logits = srv["params"], srv["prompt"], srv["logits"]
+    n_audio = sum(t.numel() for t in flatten_with_paths(params)[0].values())
+    K = acfg.audio_codebooks
+    print(f"[multimodal] {card} {AUDIO_ARCH} layers={acfg.num_layers} d_model={acfg.d_model} "
+          f"heads={acfg.num_heads}x{acfg.head_dim} codebooks={K}x{acfg.vocab_size} "
+          f"params={n_audio} serve fresh init_s={srv['restore_s']:.3f} prompt_frames="
+          f"{AUDIO_PROMPT} ttft_s={srv['ttft_s']:.3f} decode_frames_per_s="
+          f"{srv['decode_tok_s'] / SERVE_BATCH:.1f} (x{K} codebooks x{SERVE_BATCH} batch) "
+          f"flash_attention_launches={acounts['flash_attention']}", flush=True)
+    if acounts["flash_attention"] or logits.shape != (
+            SERVE_BATCH, AUDIO_GEN, K, acfg.vocab_size) or not bool(logits.isfinite().all()):
+        raise SystemExit(f"[multimodal] {AUDIO_ARCH} serve: {acounts}, {tuple(logits.shape)}")
+    with torch.device("meta"):
+        module = tfm.Transformer(acfg)
+    served = torch.from_numpy(srv["tokens"]).to(prompt.device, torch.int32)
+    seq = torch.cat([prompt, served[:, :-1]], dim=1)
+    params32 = _f32(params)
+    with torch.no_grad():
+        h = mm.audio_hidden(module, params, prompt)[0]
+        prefill_same = torch.equal(mm._audio_logits(acfg, params, h[:, -1:])[:, 0],
+                                   logits[:, 0])
+        del h
+    print(f"[multimodal] {card} {AUDIO_ARCH} prefill_last_logits_bitwise_equal_to_forward_"
+          f"over_prompt={prefill_same}", flush=True)
+    if not prefill_same:
+        raise SystemExit(f"[multimodal] {AUDIO_ARCH}: the prefill's last logits differ from "
+                         f"the forward's")
+    _served_vs_f32(
+        "multimodal", card, logits, served,
+        lambda f32: mm.audio_hidden(module, params32 if f32 else params, seq)[0],
+        lambda h, f32: mm._audio_logits(acfg, params32 if f32 else params, h),
+        AUDIO_PROMPT, AUDIO_ARCH)
+    del srv, logits, params, params32
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": {"chunk_digest": counts["chunk_digest"], "flash_attention": flash,
@@ -3511,7 +3864,7 @@ def phase_cluster_proxy(card: str) -> dict:
 
 
 def lane_child(cfg: dict) -> int:
-    """``[proxy]``, the cluster phases and ``[hybrid]``, in a process of
+    """``[proxy]``, the cluster phases, ``[hybrid]`` and ``[multimodal]``, in a process of
     their own that the script runs beside its ``[serve:proxy]``, ``[uvm]``
     and ``[moe]``: each path
     counts its launches where it runs (this process, its proxies, its
@@ -3532,11 +3885,15 @@ def lane_child(cfg: dict) -> int:
     torch.cuda.empty_cache()
     with _clock("hybrid"):
         hybrided = phase_hybrid(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _clock("multimodal"):
+        multimodal = phase_multimodal(card)
     with open(cfg["out"], "w") as f:
         json.dump({"proxy": proxied["launches"], "cluster": clustered["launches"],
                    "cluster_proxy": clustered["launches_proxy"],
                    "cluster_remote": clustered["launches_remote"],
-                   "hybrid": hybrided["launches"]}, f)
+                   "hybrid": hybrided["launches"], "multimodal": multimodal["launches"]}, f)
     return 0
 
 
@@ -3556,10 +3913,12 @@ def _lane_result(lane, log_path: str, out_path: str, t_script: float) -> dict:
         sys.stdout.write(f.read())
     sys.stdout.flush()
     if lane.returncode is None:
-        raise SystemExit(f"the [proxy]/[cluster]/[hybrid] lane passed {SCRIPT_BUDGET_S:.0f} s "
+        raise SystemExit(f"the [proxy]/[cluster]/[hybrid]/[multimodal] lane passed "
+                         f"{SCRIPT_BUDGET_S:.0f} s "
                          f"into the script")
     if lane.returncode != 0:
-        raise SystemExit(f"the [proxy]/[cluster]/[hybrid] lane failed ({lane.returncode})")
+        raise SystemExit(f"the [proxy]/[cluster]/[hybrid]/[multimodal] lane failed "
+                         f"({lane.returncode})")
     with open(out_path) as f:
         return json.load(f)
 
@@ -3677,6 +4036,7 @@ def main() -> int:
         row["launches_cluster_remote"] = laned["cluster_remote"].get(row["name"])
         row["launches_moe"] = moed["launches"][row["name"]]
         row["launches_hybrid"] = laned["hybrid"][row["name"]]
+        row["launches_multimodal"] = laned["multimodal"][row["name"]]
     print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Architecture registry: ``--arch <id>`` ids as the reference names them.
 
-Only architectures whose model code is ported to PyTorch are listed: the
-dense and the MoE text transformers, the SSM model (mamba2-130m) and the
-hybrid (zamba2-1.2b). Their configs are the reference's, field for field;
-qwen2-0.5b trains on one card at full size, mamba2-130m serves at full
-size, moonshot-v1-16b-a3b and zamba2-1.2b train at full width (cut in
-depth); the others' full sizes need the sharding the port does not have
-yet (``runtime/sharding.py``).
+Every architecture of the reference is listed: the dense and the MoE text
+transformers, the SSM model (mamba2-130m), the hybrid (zamba2-1.2b), the
+vision-language model (paligemma-3b) and the audio model over codebooks
+(musicgen-medium). Their configs are the reference's, field for field;
+qwen2-0.5b trains on one card at full size, mamba2-130m and
+musicgen-medium serve at full size, moonshot-v1-16b-a3b, zamba2-1.2b and
+paligemma-3b train at full width (cut in depth); the others' full sizes
+need the sharding the port does not have yet (``runtime/sharding.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ _MODULES = {
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
 }
 
 

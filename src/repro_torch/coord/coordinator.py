@@ -100,6 +100,9 @@ class RoundRecord:
 class _Round:
     step: int
     opened_at: float
+    # the root span's B, in the tracer's wall-clock microseconds, read
+    # beside ``opened_at``: its E is placed ``round_s`` after it
+    opened_us: int = 0
     drained_at: float | None = None
     acks: dict[int, dict] = field(default_factory=dict)
     record: RoundRecord | None = None
@@ -420,7 +423,8 @@ class Coordinator:
             return  # stale barrier from before a restore
         r = self._round
         if r is None:
-            r = self._round = _Round(step=step, opened_at=time.monotonic())
+            r = self._round = _Round(step=step, opened_at=time.monotonic(),
+                                     opened_us=time.time_ns() // 1000)
             r.record = RoundRecord(step=step)
             self.rounds.append(r.record)
             tr = obs_trace.get()
@@ -432,7 +436,8 @@ class Coordinator:
                 r.ctx = obs_trace.span_context(
                     trace_id, span=obs_trace.root_span_id(trace_id)
                 )
-                tr.begin("coord.round", step=step, **obs_trace.ctx_args(r.ctx))
+                tr.begin("coord.round", ts_us=r.opened_us, step=step,
+                         **obs_trace.ctx_args(r.ctx))
         if step != r.step:
             # a worker at a different boundary than the open round means the
             # cluster lost lockstep — abort, then re-open at the incoming
@@ -539,14 +544,16 @@ class Coordinator:
         if tr is not None:
             # the decision phase as a real span (merge + fsync + marker),
             # child of the round root — the reference critpath's commit bucket. The
-            # round root closes HERE, at the decision, so its extent
-            # matches the journaled round_s (first READY -> decision) and
-            # critpath --check can hold the two within tolerance; the
-            # broadcast/journal/watchdog work below is post-round.
+            # round root's extent is the journaled round_s (first READY ->
+            # decision) itself, from the same clock readings: two readings
+            # of their own would differ by however long this thread waited
+            # between them (for the GIL, for a CPU), and critpath --check
+            # holds the two to 2 ms; the broadcast/journal/watchdog work
+            # below is post-round.
             tr.complete("coord.commit", t0, step=rec.step,
                         bytes_written=rec.bytes_written,
                         **obs_trace.ctx_args(obs_trace.child_span(rctx)))
-            tr.end("coord.round")
+            tr.end("coord.round", ts_us=r.opened_us + round(rec.round_s * 1e6))
         extra = {"ctx": rctx} if rctx is not None else {}
         self._broadcast(MSG_COMMIT, step=rec.step, **extra)
         self._log("round", **asdict(rec))
@@ -569,7 +576,7 @@ class Coordinator:
         tr = obs_trace.get()
         if tr is not None:
             tr.instant("coord.abort", step=rec.step, reason=reason)
-            tr.end("coord.round")
+            tr.end("coord.round", ts_us=r.opened_us + round(rec.round_s * 1e6))
         extra = {"ctx": rctx} if rctx is not None else {}
         self._broadcast(MSG_ABORT, step=rec.step, reason=reason, **extra)
         self._log("round", **asdict(rec))

@@ -11,13 +11,16 @@
 // kv head of query head h being h / (Hq / Hkv):
 //
 //     s    = (q . k) * scale                           (f32 dot, then scale)
-//     s    = -1e30 where causal and col > row + Sk - Sq (right-aligned mask)
+//     s    = -1e30 where causal and col > row + Sk - Sq and col >= prefix_len
+//            (the right-aligned mask; prefix_len > 0 opens the first keys
+//            to every row: the prefix-LM mask of _chunked_attention)
 //     out  = online softmax over key tiles: m, l and the accumulator in f32,
 //            l == 0 -> 1, out = acc / l, rounded to q's dtype (RNE)
 //
 // Masked logits are -1e30, never -inf, as in the TPU kernel. So a row with no
-// valid key (Sq > Sk, row < Sq - Sk) sees exp(s - m) = exp(0) = 1 for every
-// key and comes out as the mean of v over all Sk keys, not 0 and not NaN.
+// valid key (Sq > Sk, row < Sq - Sk, no prefix) sees exp(s - m) = exp(0) = 1
+// for every key and comes out as the mean of v over all Sk keys, not 0 and
+// not NaN. With prefix_len >= 1 every row sees key 0, so no row lacks a key.
 //
 // Row statistics, for the backward (flash_attention_bwd.cu): given non-null
 // m and l pointers, both routes also store each row's max m (natural-log
@@ -45,19 +48,25 @@
 //     first, so every head's long causal rows start before any short ones;
 //     at D <= 64 a thread keeps to 128 registers, so 2 CTAs share an SM and
 //     one's softmax runs beside the other's wgmma;
-//   - TMA loads q once and k, v in 64-key tiles into a 3-stage ring of
-//     swizzled shared memory, each stage completed on its own mbarrier; one
-//     thread issues the loads, and a stage is refilled as soon as both
-//     warpgroups are done with it, two tiles ahead of its use;
+//   - TMA loads q once and k, v in 64-key tiles into a ring of swizzled
+//     shared memory, each stage completed on its own mbarrier; one thread
+//     issues the loads, and a stage is refilled as soon as both warpgroups
+//     are done with it. The ring has 3 stages (two tiles ahead of their
+//     use) up to D = 128 and 2 at D = 256, where q is 64 KB and one k or v
+//     tile 32 KB: 3 stages would need 256 KB of the 227 KB a block may
+//     have, 2 take 192 KB. At D = 256 the O accumulator alone is 128 f32
+//     registers a thread: one CTA per SM, and the two products of a tile
+//     step run one after the other (below);
 //   - every operand has its own 4-D tensor map over (D, then S, H, B in
 //     order of stride), built from the tensor's own byte strides, so the
 //     model's transposed v view goes in as it is, with no copy; D = 64 is one
-//     128-byte-swizzled panel, D = 128 two of them, D = 32 one
+//     128-byte-swizzled panel, D = 128 two of them, D = 256 four, D = 32 one
 //     64-byte-swizzled panel. TMA fills reads past Sq or Sk with zeros;
 //   - S = q k^T is wgmma m64n64k16 with q and k from shared memory (both
-//     K-major), f32 accumulators. Tile t's q k^T is issued together with
-//     tile t - 1's P V, and the softmax of tile t runs while P V is on the
-//     tensor cores;
+//     K-major), f32 accumulators. Up to D = 128 tile t's q k^T is issued
+//     together with tile t - 1's P V, and the softmax of tile t runs while
+//     P V is on the tensor cores; at D = 256 S, P and O would not fit in
+//     the registers together, so P V completes before q k^T is issued;
 //   - softmax in registers: each row of a warpgroup's accumulator lies in the
 //     4 threads of a quad, so row max and row sum take two __shfl_xor_sync
 //     (the butterfly gives all 4 the same bits). Exponentials are exp2 of
@@ -70,18 +79,22 @@
 //     fragment of S is, pair by pair, the A fragment of the next product
 //     once packed to bf16x2 / half2, so P never touches shared memory. V is
 //     the B operand in its natural (keys x D) layout through the
-//     descriptor's transpose mode;
+//     descriptor's transpose mode. wgmma's n is at most 256 and CUTLASS-free
+//     operand lists stay short, so D = 256 issues two m64n128k16 per k16
+//     step, one per half of the accumulator (panels 0-1 and 2-3 of v);
 //   - the precision of P: P is split as P = P_hi + P_lo, each rounded to the
 //     input type, and P V is two wgmma (1.5x the tensor-core work of one
 //     rounding). At the serve shape one bf16 rounding of P reads 12.3x the
 //     unchanged bf16 limit of the sweep (chip_smoke.py, the plain version
 //     with P rounded once) and the split 0.944x, on an NVIDIA H100 80GB HBM3
 //     at 700 W;
-//   - causal: a tile whose first row has a key stops at the last key its
-//     last row may see; a tile that holds a row with no key walks all key
-//     tiles, because that row's output is the mean of all of v. Keys past Sk
-//     get -inf (weight exactly 0); rows past Sq are computed on zeros and
-//     never stored.
+//   - causal: a tile whose first row has a key (or any tile, with a prefix)
+//     stops at the key tile holding max(last row + Sk - Sq, prefix_len - 1),
+//     the last key its last row may see; a tile that holds a row with no key
+//     walks all key tiles, because that row's output is the mean of all of
+//     v. A key tile inside the prefix, or below every row's diagonal, has no
+//     mask and takes the one-fma softmax. Keys past Sk get -inf (weight
+//     exactly 0); rows past Sq are computed on zeros and never stored.
 //
 // f32: flash_fwd_simt, CUDA cores (wgmma has no f32 inputs, and TF32's 10-bit
 // mantissa would not meet the f32 limit of 2e-5).
@@ -95,7 +108,8 @@
 //     accumulator. Row max and row sum are reduced across the 16 threads of
 //     a row with __shfl_xor_sync;
 //   - p goes through shared memory ([64][68], float4 rows) for p @ v;
-//   - the same causal tile-skip rule and -inf for keys past Sk;
+//   - the same causal tile-skip rule, prefix mask and -inf for keys past Sk;
+//   - D = 256 takes 217 KB of shared memory: one CTA per SM;
 //   - q, k, v and out are read through (b, h, s) strides with unit stride
 //     in D.
 //
@@ -140,9 +154,22 @@ struct Params {
   int sq, sk, group;
   float scale;
   int causal;
-  float* m;  // (b, hq, sq) row statistics, or null
+  int prefix_len;  // keys every row may see (the prefix-LM mask); 0: none
+  float* m;        // (b, hq, sq) row statistics, or null
   float* l;
 };
+
+// The number of key tiles of `tile` keys that a causal q tile whose first
+// row is `q0` and last row `last_row` reads (of `n_tiles`): up to the tile
+// holding max(last row + offset, prefix_len - 1). A tile with a row that
+// has no key (no prefix and q0 + offset < 0) reads them all.
+__device__ __forceinline__ int causal_tiles(int n_tiles, int q0, int last_row, int offset,
+                                            int prefix_len, int tile) {
+  if (q0 + offset < 0 && prefix_len < 1) {
+    return n_tiles;
+  }
+  return min(n_tiles, max(last_row + offset, prefix_len - 1) / tile + 1);
+}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -195,9 +222,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const Params p) {
   }
 
   int n_tiles = (p.sk + kBlockK - 1) / kBlockK;
-  if (p.causal && q0 + offset >= 0) {
-    const int last_row = min(q0 + kBlockQ, p.sq) - 1;
-    n_tiles = min(n_tiles, (last_row + offset) / kBlockK + 1);
+  if (p.causal) {
+    n_tiles = causal_tiles(n_tiles, q0, min(q0 + kBlockQ, p.sq) - 1, offset, p.prefix_len,
+                           kBlockK);
   }
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -247,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_simt(const Params p) {
         float x = s[i][j] * p.scale;
         if (col >= p.sk) {
           x = -INFINITY;  // not a key: weight exactly 0 for every row
-        } else if (p.causal && col > row + offset) {
+        } else if (p.causal && col > row + offset && col >= p.prefix_len) {
           x = kMasked;
         }
         s[i][j] = x;
@@ -361,6 +388,8 @@ cudaError_t launch_dim(const Params& p, int b, int hq, int d, cudaStream_t strea
       return launch_typed<T, 64>(p, b, hq, stream);
     case 128:
       return launch_typed<T, 128>(p, b, hq, stream);
+    case 256:
+      return launch_typed<T, 256>(p, b, hq, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -373,7 +402,6 @@ cudaError_t launch_dim(const Params& p, int b, int hq, int d, cudaStream_t strea
 constexpr int kTcBlockQ = 128;  // q rows per CTA: 2 warpgroups x 64
 constexpr int kTcBlockK = 64;   // keys per tile
 constexpr int kTcThreads = 256;
-constexpr int kStages = 3;      // k/v tiles in the shared-memory ring
 
 struct TcParams {
   void* o;
@@ -381,15 +409,18 @@ struct TcParams {
   int sq, sk, group;
   float scale_log2;          // scale * log2(e)
   int causal;
+  int prefix_len;            // keys every row may see (the prefix-LM mask); 0: none
   int slots[3];              // q, k, v: the map slot (1..3) of S | of H << 2
   float* m;                  // (b, hq, sq) row statistics, or null
   float* l;
 };
 
 // Shared-memory layout of one head dim: rows of one panel (kPanel elements
-// of 16 bits, 128 or 64 bytes), panels one after the other.
+// of 16 bits, 128 or 64 bytes), panels one after the other; kStages k/v
+// tiles in the ring (2 at D = 256: 3 would pass the 227 KB a block may have).
 template <int D>
 struct TcShape {
+  static constexpr int kStages = D >= 256 ? 2 : 3;
   static constexpr int kPanel = D < 64 ? D : 64;
   static constexpr int kPanels = D / kPanel;
   static constexpr uint32_t kRowBytes = kPanel * 2;
@@ -509,6 +540,18 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t a, uint64_t b,
 // D contiguous: the transpose mode).
 template <typename T, int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t b);
+// O (64 x 256) += A . B as two m64n128k16, one per half of the accumulator:
+// registers 0-63 hold columns 0-127 and 64-127 columns 128-255 (an n = 256
+// fragment's j-th group of 8 columns is registers 4j..4j+3), and the second
+// half of B starts two 64-column panels on (`half_bytes`, the panel stride
+// times 2).
+template <typename T>
+__device__ __forceinline__ void wgmma_pv256(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                            uint32_t half_bytes) {
+  wgmma_pv<T, 128>(*reinterpret_cast<float(*)[64]>(&d[0]), a, b);
+  wgmma_pv<T, 128>(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                   b + static_cast<uint64_t>((half_bytes & 0x3FFFF) >> 4));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_qk<__nv_bfloat16>(float (&d)[32], uint64_t a, uint64_t b,
@@ -654,6 +697,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
   constexpr int kSteps = D / 16;           // k16 steps of q . k
   constexpr int kPSteps = kTcBlockK / 16;  // k16 steps of p . v
   constexpr uint32_t kSbo = 8 * L::kRowBytes;
+  constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[1 + kStages];  // q, then one per k/v stage
   const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms
@@ -672,9 +716,9 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
   const int offset = p.sk - p.sq;
 
   int n_tiles = (p.sk + kTcBlockK - 1) / kTcBlockK;
-  if (p.causal && q0 + offset >= 0) {
-    const int last_row = min(q0 + kTcBlockQ, p.sq) - 1;
-    n_tiles = min(n_tiles, (last_row + offset) / kTcBlockK + 1);
+  if (p.causal) {
+    n_tiles = causal_tiles(n_tiles, q0, min(q0 + kTcBlockQ, p.sq) - 1, offset, p.prefix_len,
+                           kTcBlockK);
   }
 
   auto load_kv = [&](int t, int stage) {
@@ -743,8 +787,13 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
     for (int kk = 0; kk < kPSteps; ++kk) {
       const uint64_t dv = smem_desc(v_smem + stage * L::kKvBytes + kk * 16 * L::kRowBytes,
                                     kTcBlockK * L::kRowBytes, kSbo, L::kSwizzle);
-      wgmma_pv<T, D>(o, ph[kk], dv);
-      wgmma_pv<T, D>(o, pl[kk], dv);
+      if constexpr (D == 256) {
+        wgmma_pv256<T>(o, ph[kk], dv, 2 * kTcBlockK * L::kRowBytes);
+        wgmma_pv256<T>(o, pl[kk], dv, 2 * kTcBlockK * L::kRowBytes);
+      } else {
+        wgmma_pv<T, D>(o, ph[kk], dv);
+        wgmma_pv<T, D>(o, pl[kk], dv);
+      }
     }
   };
 
@@ -752,11 +801,12 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
   // carried in m and l; alpha gets the factor the accumulator's rows take.
   // A tile with no mask (kFold) keeps the raw scores, takes their max and
   // scales inside exp2's argument with one fma; a tile on the causal
-  // diagonal or past Sk scales first and masks.
+  // diagonal (and not inside the prefix) or past Sk scales first and masks.
   auto softmax = [&](int t, float (&alpha)[2]) {
     const int k0 = t * kTcBlockK;
     const bool edge = k0 + kTcBlockK > p.sk ||
-                      (p.causal && k0 + kTcBlockK - 1 > wg_row0 + offset);
+                      (p.causal && k0 + kTcBlockK - 1 > wg_row0 + offset &&
+                       k0 + kTcBlockK > p.prefix_len);
     auto rows = [&](auto fold) {
       constexpr bool kFold = decltype(fold)::value;
 #pragma unroll
@@ -773,7 +823,7 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
               const int key = k0 + 8 * j + col0 + c;
               if (key >= p.sk) {
                 x = -INFINITY;  // not a key: weight exactly 0 for every row
-              } else if (p.causal && key > row + offset) {
+              } else if (p.causal && key > row + offset && key >= p.prefix_len) {
                 x = kMasked;
               }
               s[4 * j + 2 * i + c] = x;
@@ -852,26 +902,54 @@ __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
   rescale_pack(alpha);
   for (int t = 1; t < n_tiles; ++t) {
     const int stage = t % kStages;
-    mbar_wait(smem_u32(&bars[1 + stage]), (t / kStages) & 1);
-    pin(s);
-    pin(o);
-    pin(ph);
-    pin(pl);
-    wgmma_fence();
-    issue_qk(stage);
-    wgmma_commit();
-    issue_pv((t - 1) % kStages);
-    wgmma_commit();
-    wgmma_wait<1>();
-    pin(s);
-    softmax(t, alpha);
-    wgmma_wait<0>();
-    pin(o);
-    pin(ph);
-    pin(pl);
-    __syncthreads();  // both warpgroups are done with tile t - 1's stage
-    if (tid == 0 && t - 1 + kStages < n_tiles) load_kv(t - 1 + kStages, (t - 1) % kStages);
-    rescale_pack(alpha);
+    if constexpr (D < 256) {
+      mbar_wait(smem_u32(&bars[1 + stage]), (t / kStages) & 1);
+      pin(s);
+      pin(o);
+      pin(ph);
+      pin(pl);
+      wgmma_fence();
+      issue_qk(stage);
+      wgmma_commit();
+      issue_pv((t - 1) % kStages);
+      wgmma_commit();
+      wgmma_wait<1>();
+      pin(s);
+      softmax(t, alpha);
+      wgmma_wait<0>();
+      pin(o);
+      pin(ph);
+      pin(pl);
+      __syncthreads();  // both warpgroups are done with tile t - 1's stage
+      if (tid == 0 && t - 1 + kStages < n_tiles) load_kv(t - 1 + kStages, (t - 1) % kStages);
+      rescale_pack(alpha);
+    } else {
+      // D = 256: S, P and O live together while both products run would
+      // take 192 of a thread's 255 registers before the softmax's own, and
+      // spill; so tile t - 1's p . v runs first, then tile t's q . k (whose
+      // wait the next stage's load overlaps)
+      pin(o);
+      pin(ph);
+      pin(pl);
+      wgmma_fence();
+      issue_pv((t - 1) % kStages);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(o);
+      pin(ph);
+      pin(pl);
+      __syncthreads();  // both warpgroups are done with tile t - 1's stage
+      if (tid == 0 && t - 1 + kStages < n_tiles) load_kv(t - 1 + kStages, (t - 1) % kStages);
+      mbar_wait(smem_u32(&bars[1 + stage]), (t / kStages) & 1);
+      pin(s);
+      wgmma_fence();
+      issue_qk(stage);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      softmax(t, alpha);
+      rescale_pack(alpha);
+    }
   }
   pin(o);
   pin(ph);
@@ -992,6 +1070,8 @@ int launch_tc_dim(const void* q, const void* k, const void* v, const int64_t* ma
       return launch_tc<T, 64>(q, k, v, maps, p, b, hq, type, stream);
     case 128:
       return launch_tc<T, 128>(q, k, v, maps, p, b, hq, type, stream);
+    case 256:
+      return launch_tc<T, 256>(q, k, v, maps, p, b, hq, type, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1001,16 +1081,18 @@ int launch_tc_dim(const void* q, const void* k, const void* v, const int64_t* ma
 
 // q, k, v, o: device pointers of float32; shapes q/o (b, hq, sq, d) and
 // k/v (b, hkv, sk, d). strides: 12 element strides, (b, h, s) for q, k, v, o
-// in that order; every d stride is 1. m, l: null, or (b, hq, sq) f32 arrays
+// in that order; every d stride is 1. prefix_len: keys every row may see
+// under the causal mask (0: none). m, l: null, or (b, hq, sq) f32 arrays
 // for the row statistics. The caller makes the tensors' device current. The
 // one kernel goes on `stream`; nothing is synchronised or allocated here.
 extern "C" int flash_attention_simt_launch(const void* q, const void* k, const void* v, void* o,
                                            const int64_t* strides, int b, int hq, int hkv,
                                            int sq, int sk, int d, float scale, int causal,
-                                           float* m, float* l, cudaStream_t stream) {
+                                           int prefix_len, float* m, float* l,
+                                           cudaStream_t stream) {
   if (q == nullptr || k == nullptr || v == nullptr || o == nullptr || strides == nullptr ||
       b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 || b > 65535 ||
-      hq > 65535) {
+      hq > 65535 || prefix_len < 0) {
     return cudaErrorInvalidValue;
   }
   Params p;
@@ -1035,6 +1117,7 @@ extern "C" int flash_attention_simt_launch(const void* q, const void* k, const v
   p.group = hq / hkv;
   p.scale = scale;
   p.causal = causal;
+  p.prefix_len = prefix_len;
   p.m = m;
   p.l = l;
   return launch_dim<float>(p, b, hq, d, stream);
@@ -1045,17 +1128,18 @@ extern "C" int flash_attention_simt_launch(const void* q, const void* k, const v
 // (D first, then S, H, B in the order of their strides), the byte strides of
 // dims 1..3 (multiples of 16) and the slots of S and H (S | H << 2).
 // o: (b, hq, sq, d) of `dtype` with element strides o_strides (b, h, s) and
-// unit stride in d. m, l: null, or (b, hq, sq) f32 arrays for the row
+// unit stride in d. prefix_len: keys every row may see under the causal mask
+// (0: none). m, l: null, or (b, hq, sq) f32 arrays for the row
 // statistics. The caller makes the tensors' device current. The one kernel
 // goes on `stream`; nothing is synchronised or allocated here.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                                             const int64_t* maps, const int64_t* o_strides, int b,
                                             int hq, int hkv, int sq, int sk, int d, int dtype,
-                                            float scale, int causal, float* m, float* l,
-                                            cudaStream_t stream) {
+                                            float scale, int causal, int prefix_len, float* m,
+                                            float* l, cudaStream_t stream) {
   if (q == nullptr || k == nullptr || v == nullptr || o == nullptr || maps == nullptr ||
       o_strides == nullptr || b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 ||
-      sk <= 0 || b > 65535 || hq > 65535) {
+      sk <= 0 || b > 65535 || hq > 65535 || prefix_len < 0) {
     return cudaErrorInvalidValue;
   }
   TcParams p;
@@ -1068,6 +1152,7 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   p.group = hq / hkv;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.causal = causal;
+  p.prefix_len = prefix_len;
   p.m = m;
   p.l = l;
   switch (dtype) {

@@ -39,7 +39,11 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SOURCE_BWD = SOURCE.with_name("flash_attention_bwd.cu")
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128)
+# where the backward kernel's missing cases are queued
+BWD_TODO = "ROADMAP Queue 2 item 4, the flash backward with a prefix and at head dim 256"
+_MAX_PREFIX = (1 << 31) - 1
 ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma", torch.float16: "wgmma"}
 BWD_ROUTES = {torch.float32: "simt", torch.bfloat16: "mma", torch.float16: "mma"}
 _DTYPES = {torch.bfloat16: 1, torch.float16: 2}  # the tensor-core entry's codes
@@ -104,12 +108,13 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     if name == "fwd":
         lib.flash_attention_simt_launch.argtypes = [
             ptr, ptr, ptr, ptr, i64p,
-            c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, ptr, ptr, ptr,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, c_int, ptr, ptr, ptr,
         ]
         lib.flash_attention_simt_launch.restype = c_int
         lib.flash_attention_wgmma_launch.argtypes = [
             ptr, ptr, ptr, ptr, i64p, i64p,
-            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, ptr, ptr, ptr,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, c_int,
+            ptr, ptr, ptr,
         ]
         lib.flash_attention_wgmma_launch.restype = c_int
         lib.flash_attention_error_string.argtypes = [c_int]
@@ -171,13 +176,17 @@ def tensor_map(name: str, shape, strides, itemsize: int, data_ptr: int) -> tuple
     return (*dims, *byte_strides, slots)
 
 
-def launch_plan(dtype: torch.dtype, shapes, strides, data_ptrs):
+def launch_plan(dtype: torch.dtype, shapes, strides, data_ptrs, prefix_len: int = 0):
     """Route and layout of one call, from q, k, v's dtype, shapes, strides
-    and data pointers alone: ``(route, maps)``, where ``maps`` holds the
-    tensor maps of q, k and v for the ``wgmma`` route and is None for
-    ``simt``. Raises ``ValueError`` on anything the route cannot take.
+    and data pointers and its ``prefix_len`` alone: ``(route, maps)``,
+    where ``maps`` holds the tensor maps of q, k and v for the ``wgmma``
+    route and is None for ``simt``. Raises ``ValueError`` on anything the
+    route cannot take.
     """
     r = route(dtype)
+    if not 0 <= int(prefix_len) <= _MAX_PREFIX:
+        raise ValueError(f"flash_attention kernel takes a prefix_len in [0, 2**31), "
+                         f"not {prefix_len}")
     qs, ks, vs = (tuple(s) for s in shapes)
     if len(qs) != 4 or len(ks) != 4 or ks != vs:
         raise ValueError(f"flash_attention kernel needs q (B,Hq,Sq,D) and k, v "
@@ -208,14 +217,16 @@ def launch_plan(dtype: torch.dtype, shapes, strides, data_ptrs):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    stats: bool = False):
+                    stats: bool = False, prefix_len: int = 0):
     """Causal GQA attention on the card. q: (B,Hq,Sq,D); k, v: (B,Hkv,Sk,D).
 
     Returns (B, Hq, Sq, D) in q's dtype, equal within rounding to
     ``kernels.ref.flash_attention_plain``; with ``stats`` it returns
     ``(out, m, l)``, m and l the rows' softmax statistics as (B, Hq, Sq)
-    f32 (what the backward takes). Takes CUDA tensors of one dtype
-    (float32, bfloat16 or float16) on one device, D in {32, 64, 128},
+    f32 (what the backward takes). With ``prefix_len`` > 0 the first
+    ``prefix_len`` keys are open to every row (the prefix-LM mask; causal
+    calls only). Takes CUDA tensors of one dtype
+    (float32, bfloat16 or float16) on one device, D in {32, 64, 128, 256},
     unit stride in D and, for bfloat16 and float16, the layout TMA reads
     (:func:`tensor_map`); raises on anything else. Its own tiling needs no
     divisibility of Sq or Sk. ``flash_attention.launches`` counts launches,
@@ -229,7 +240,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention kernel needs q, k, v on one device "
                          "with one dtype")
     r, maps = launch_plan(q.dtype, [t.shape for t in ts], [t.stride() for t in ts],
-                          [t.data_ptr() for t in ts])
+                          [t.data_ptr() for t in ts], prefix_len)
+    prefix = int(prefix_len) if causal else 0
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale_f = float(scale if scale is not None else 1.0 / np.sqrt(D))
@@ -247,12 +259,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             err = lib.flash_attention_wgmma_launch(
                 *ptrs, (ctypes.c_int64 * 24)(*(x for mp in maps for x in mp)),
                 (ctypes.c_int64 * 3)(*out.stride()[:3]),
-                B, Hq, Hkv, Sq, Sk, D, _DTYPES[q.dtype], scale_f, int(causal),
+                B, Hq, Hkv, Sq, Sk, D, _DTYPES[q.dtype], scale_f, int(causal), prefix,
                 *stat_ptrs, stream)
         else:
             strides = (ctypes.c_int64 * 12)(*(s for t in (*ts, out) for s in t.stride()[:3]))
             err = lib.flash_attention_simt_launch(
-                *ptrs, strides, B, Hq, Hkv, Sq, Sk, D, scale_f, int(causal),
+                *ptrs, strides, B, Hq, Hkv, Sq, Sk, D, scale_f, int(causal), prefix,
                 *stat_ptrs, stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
@@ -267,18 +279,33 @@ flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
-def bwd_launch_plan(dtype: torch.dtype, shapes, strides, data_ptrs) -> str:
+def check_bwd_supported(head_dim: int, prefix_len: int | None) -> None:
+    """Raises ``ValueError`` naming where it is queued for what the
+    backward kernel does not take: a prefix, or a head dim outside
+    ``BWD_HEAD_DIMS``. Nothing gives way to the plain version."""
+    if prefix_len:
+        raise ValueError(f"flash_attention backward kernel: prefix_len={prefix_len} "
+                         f"(the prefix-LM mask) is not ported ({BWD_TODO})")
+    if head_dim not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward kernel takes head dim D in "
+                         f"{BWD_HEAD_DIMS}, not {head_dim} ({BWD_TODO})")
+
+
+def bwd_launch_plan(dtype: torch.dtype, shapes, strides, data_ptrs,
+                    prefix_len: int = 0) -> str:
     """Route of one backward call, from q, k, v, o and dO's dtype, shapes,
-    strides and data pointers alone: ``"mma"`` (bfloat16, float16) or
-    ``"simt"`` (float32). The forward's checks on q, k and v, plus: o and dO
-    shaped like q, unit stride in the head dim, and on the tensor-core route
-    rows that 16-byte loads can read (every operand's data pointer and the
-    byte strides of its dims longer than 1 multiples of 16). Raises
-    ``ValueError`` on anything the route cannot take."""
+    strides and data pointers and its ``prefix_len`` alone: ``"mma"``
+    (bfloat16, float16) or ``"simt"`` (float32). The forward's checks on q,
+    k and v, plus: o and dO shaped like q, unit stride in the head dim, on
+    the tensor-core route rows that 16-byte loads can read (every operand's
+    data pointer and the byte strides of its dims longer than 1 multiples
+    of 16), no prefix and D in ``BWD_HEAD_DIMS`` (:func:`check_bwd_supported`).
+    Raises ``ValueError`` on anything the route cannot take."""
     if dtype not in BWD_ROUTES:
         raise ValueError(f"flash_attention backward kernel takes float32, bfloat16 "
                          f"or float16, not {dtype}")
     launch_plan(torch.float32, shapes[:3], strides[:3], data_ptrs[:3])
+    check_bwd_supported(tuple(shapes[0])[3], prefix_len)
     qs = tuple(shapes[0])
     for name, shape in zip(("o", "dO"), shapes[3:]):
         if tuple(shape) != qs:
@@ -324,7 +351,7 @@ def bwd_scratch(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Sk: int,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
-                        scale: float | None = None):
+                        scale: float | None = None, prefix_len: int = 0):
     """Gradients of :func:`flash_attention` on the card: ``(dq, dk, dv)``.
 
     q, k, v and the forward's output ``o`` with its row statistics ``m``,
@@ -351,7 +378,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention backward kernel needs q, k, v, o, dO on one "
                          "device with one dtype")
     r = bwd_launch_plan(q.dtype, [t.shape for t in ts], [t.stride() for t in ts],
-                        [t.data_ptr() for t in ts])
+                        [t.data_ptr() for t in ts], prefix_len if causal else 0)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     check_stats((B, Hq, Sq), m, l)

@@ -130,16 +130,18 @@ class _FlashAttention(torch.autograd.Function):
     (at the call's blocks) on the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, bq, bk):
+    def forward(ctx, q, k, v, causal, scale, bq, bk, prefix):
         if q.device.type == "cpu":
             out, m, l = _ref.flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                                    block_q=bq, block_k=bk,
-                                                   return_stats=True)
+                                                   return_stats=True, prefix_len=prefix)
         else:
+            # refuse what the backward kernel cannot take before the forward runs
+            _flash.check_bwd_supported(q.shape[-1], prefix)
             out, m, l = _flash.flash_attention(q, k, v, causal=causal, scale=scale,
-                                               stats=True)
+                                               stats=True, prefix_len=prefix)
         ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.args = (causal, scale, bq, bk)
+        ctx.args = (causal, scale, bq, bk, prefix)
         # the backward may run on autograd's own thread: credit this one's
         ctx.counts = _flash.thread_counts()
         return out
@@ -148,15 +150,16 @@ class _FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, k, v, out, m, l = ctx.saved_tensors
-        causal, scale, bq, bk = ctx.args
+        causal, scale, bq, bk, prefix = ctx.args
         with _flash.credit(ctx.counts):
             if q.device.type == "cpu":
                 grads = _ref.flash_attention_bwd_plain(q, k, v, out, m, l, do, causal=causal,
-                                                       scale=scale, block_q=bq, block_k=bk)
+                                                       scale=scale, block_q=bq, block_k=bk,
+                                                       prefix_len=prefix)
             else:
                 grads = _flash.flash_attention_bwd(q, k, v, out, m, l, do, causal=causal,
-                                                   scale=scale)
-        return (*grads, None, None, None, None)
+                                                   scale=scale, prefix_len=prefix)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(
@@ -168,16 +171,21 @@ def flash_attention(
     scale: float | None = None,
     block_q: int = 128,
     block_k: int = 128,
+    prefix_len: int | None = None,
 ) -> torch.Tensor:
     """Causal GQA attention. q: (B,Hq,Sq,D); k,v: (B,Hkv,Sk,D).
 
     The reference's entry point and its checks: Hq must divide by Hkv, and
-    Sq, Sk by ``min(block_q, Sq)``, ``min(block_k, Sk)``. On the CPU the
-    plain version runs at those blocks; on the card the kernel, whose own
-    tiling does not depend on them. Differentiable in q, k and v: when a
-    gradient is being taken the forward also keeps its row statistics and
-    the backward runs the backward kernel (card) or its plain version
-    (CPU); otherwise the forward alone runs, with no statistics.
+    Sq, Sk by ``min(block_q, Sq)``, ``min(block_k, Sk)``. ``prefix_len``
+    opens keys ``col < prefix_len`` to every row (the prefix-LM mask of the
+    reference's ``_chunked_attention``; None or 0: causal alone). On the
+    CPU the plain version runs at those blocks; on the card the kernel,
+    whose own tiling does not depend on them. Differentiable in q, k and v:
+    when a gradient is being taken the forward also keeps its row
+    statistics and the backward runs the backward kernel (card) or its
+    plain version (CPU); otherwise the forward alone runs, with no
+    statistics. The backward kernel takes neither a prefix nor head dim
+    256: on the card such a call raises ``ValueError`` before its forward.
     """
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -188,9 +196,12 @@ def flash_attention(
         raise ValueError(f"seq lengths ({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash_attention kernel for device {q.device}")
+    prefix = int(prefix_len or 0) if causal else 0  # the mask widens the causal one
+    if prefix < 0:
+        raise ValueError(f"prefix_len must be >= 0, not {prefix_len}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, scale, bq, bk)
+        return _FlashAttention.apply(q, k, v, causal, scale, bq, bk, prefix)
     if q.device.type == "cpu":
         return _ref.flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                          block_q=bq, block_k=bk)
-    return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
+                                          block_q=bq, block_k=bk, prefix_len=prefix)
+    return _flash.flash_attention(q, k, v, causal=causal, scale=scale, prefix_len=prefix)

@@ -122,19 +122,37 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def _visible(rows: torch.Tensor, cols: torch.Tensor, prefix_len: int) -> torch.Tensor:
+    """The keys a row may see: the right-aligned causal mask, widened by a
+    bidirectional prefix of ``prefix_len`` keys (the reference's
+    ``cols <= rows | cols < prefix_len``)."""
+    ok = cols <= rows
+    return ok | (cols < prefix_len) if prefix_len else ok
+
+
+def _skipped(q0: int, bq: int, k0: int, offset: int, prefix_len: int) -> bool:
+    """Whether every row of q block ``q0`` masks key block ``k0`` and no row
+    of it lacks a key: the block adds nothing to the backward."""
+    has_keys = q0 + offset >= 0 or prefix_len >= 1
+    return has_keys and k0 > max(q0 + bq - 1 + offset, prefix_len - 1)
+
+
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, scale: float | None = None,
     block_q: int = 128, block_k: int = 128, return_stats: bool = False,
+    prefix_len: int | None = None,
 ):
     """Blocked online-softmax attention, the math of the flash kernel.
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); kv head = h // (Hq // Hkv).
     The same steps as the reference's ``_flash_kernel`` and
     ``_chunked_attention``, in f32: scale, then the right-aligned causal mask
-    (``col <= row + Sk - Sq``) with -1e30, never -inf; ``m``, ``l`` and the
+    (``col <= row + Sk - Sq``, or ``col < prefix_len``: the prefix-LM's
+    bidirectional prefix) with -1e30, never -inf; ``m``, ``l`` and the
     accumulator carried over key blocks; ``l == 0 -> 1``; output in q's
-    dtype. A row with no valid key comes out as the mean of v over all Sk.
+    dtype. A row with no valid key comes out as the mean of v over all Sk
+    (with a prefix of at least one key every row has one).
     ``Sq`` and ``Sk`` must divide by ``min(block_q, Sq)``, ``min(block_k, Sk)``.
     With ``return_stats`` it returns ``(out, m, l)``: each row's max logit
     (-1e30 for a row with no key) and its ``l`` (after ``l == 0 -> 1``), as
@@ -146,6 +164,7 @@ def flash_attention_plain(
     acc_t = _acc_dtype(q.dtype)
     scale = float(scale if scale is not None else 1.0 / np.sqrt(D))
     offset = Sk - Sq
+    prefix = int(prefix_len or 0)
     qg = q.reshape(B, Hkv, g, Sq, D)
     out = torch.empty((B, Hkv, g, Sq, D), dtype=q.dtype, device=q.device)
     m_all = torch.empty((B, Hkv, g, Sq, 1), dtype=acc_t, device=q.device)
@@ -162,7 +181,7 @@ def flash_attention_plain(
             if causal:
                 rows = torch.arange(q0, q0 + bq, device=q.device)[:, None] + offset
                 cols = torch.arange(k0, k0 + bk, device=q.device)[None, :]
-                s = torch.where(cols <= rows, s, _MASKED)
+                s = torch.where(_visible(rows, cols, prefix), s, _MASKED)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
@@ -183,7 +202,7 @@ def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     m: torch.Tensor, l: torch.Tensor, do: torch.Tensor, *,
     causal: bool = True, scale: float | None = None,
-    block_q: int = 128, block_k: int = 128,
+    block_q: int = 128, block_k: int = 128, prefix_len: int | None = None,
 ):
     """Gradients of :func:`flash_attention_plain`, the math of the backward
     kernel block by block: ``(dq, dk, dv)`` in their inputs' dtypes.
@@ -191,7 +210,8 @@ def flash_attention_bwd_plain(
     Takes the forward's output ``o``, its row statistics ``m``, ``l``
     ((B, Hq, Sq)) and the output's gradient ``do``. In f32:
     ``Delta = rowsum(do * o)``; per (q block, key block) the masked logits
-    (-1e30 where ``col > row + Sk - Sq``), ``P = exp(s - m) / l``,
+    (-1e30 where ``col > row + Sk - Sq`` and ``col >= prefix_len``),
+    ``P = exp(s - m) / l``,
     ``dP = do . v``, ``dS = P * (dP - Delta)`` set to 0 at masked positions
     (``torch.where`` passes no gradient to a masked logit, and a row with no
     key has ``P = 1 / Sk`` there); ``dv += P^T do``, ``dk += dS^T q``,
@@ -206,6 +226,7 @@ def flash_attention_bwd_plain(
     acc_t = _acc_dtype(q.dtype)
     scale = float(scale if scale is not None else 1.0 / np.sqrt(D))
     offset = Sk - Sq
+    prefix = int(prefix_len or 0)
     shape5 = (B, Hkv, g, Sq)
     qg = q.reshape(*shape5, D)
     dog = do.reshape(*shape5, D).to(acc_t)
@@ -220,7 +241,7 @@ def flash_attention_bwd_plain(
         doi = dog[:, :, :, q0 : q0 + bq]
         mi, li, di = (t[:, :, :, q0 : q0 + bq] for t in (mg, lg, delta))
         for k0 in range(0, Sk, bk):
-            if causal and q0 + offset >= 0 and k0 > q0 + bq - 1 + offset:
+            if causal and _skipped(q0, bq, k0, offset, prefix):
                 continue
             kj = k[:, :, k0 : k0 + bk].to(acc_t)
             vj = v[:, :, k0 : k0 + bk].to(acc_t)
@@ -228,7 +249,7 @@ def flash_attention_bwd_plain(
             if causal:
                 rows = torch.arange(q0, q0 + bq, device=q.device)[:, None] + offset
                 cols = torch.arange(k0, k0 + bk, device=q.device)[None, :]
-                ok = cols <= rows
+                ok = _visible(rows, cols, prefix)
                 s = torch.where(ok, s, _MASKED)
             p = torch.exp(s - mi) / li
             dp = torch.einsum("bhgqd,bhkd->bhgqk", doi, vj)

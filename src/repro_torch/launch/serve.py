@@ -30,8 +30,16 @@ device.
         --ckpt-dir /tmp/ckpt --lazy --device-runner proxy \\
         --proxy-endpoint 127.0.0.1:7070                           # machine A
 
-The text archs serve (dense, MoE, SSM and hybrid), as ``models.build``
-decides.
+Every arch serves inline, as ``models.build`` decides. The prompt is the
+reference's draw from ``default_rng(0)``: token ids (B, P); for the vision
+model first the image's patches (B, ``num_patches``, D) in bf16, which
+join the cache's prefix ahead of the text (the prefill and TTFT count both);
+for the audio model (B, P, K) codebook ids, decoded a frame (B, K) at a
+time, greedy per codebook. The proxied runner decodes text only, as the
+reference's ``decode_arch``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --smoke --device cpu --prompt-len 48 --gen 8
 """
 from __future__ import annotations
 
@@ -128,6 +136,24 @@ def _restore_params(args, device: torch.device):
     return params, int(manifest.step)
 
 
+def _prompt(cfg, B: int, P: int, device: torch.device) -> dict:
+    """The reference's prompt batch, drawn from ``default_rng(0)`` in its
+    order: ``inputs`` (B, P) ids, or (B, P, K) for the audio model; for the
+    vision model ``patches`` (B, num_patches, D) bf16 first."""
+    rng = np.random.default_rng(0)
+    if cfg.frontend == "audio":
+        ids = rng.integers(0, cfg.vocab_size, (B, P, cfg.audio_codebooks))
+        return {"inputs": torch.from_numpy(ids.astype(np.int32)).to(device)}
+    batch = {}
+    if cfg.frontend == "vision":
+        patches = rng.standard_normal((B, cfg.num_patches, cfg.d_model))
+        batch["patches"] = torch.from_numpy(patches.astype(np.float32)).to(
+            device, torch.bfloat16)
+    ids = rng.integers(0, cfg.vocab_size, (B, P))
+    batch["inputs"] = torch.from_numpy(ids.astype(np.int32)).to(device)
+    return batch
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -135,8 +161,10 @@ def _sync(device: torch.device) -> None:
 
 def serve(argv=None) -> dict:
     """Run the CLI. Returns the generated tokens (B, gen), their logits
-    (B, gen, V) f32 on the device, the prompt, the params, the restored
-    step (None on a fresh init), and restore s, TTFT s and decode tok/s;
+    (B, gen, V) f32 on the device (the audio model's: (B, gen, K) and (B,
+    gen, K, V)), the prompt's ids, its patches (the vision model's, else
+    None), the params, the restored step (None on a fresh init), and
+    restore s, TTFT s and decode tok/s;
     with ``--device-runner proxy``, what :func:`_serve_proxy` returns."""
     args = parse_args(argv)
     if args.device_runner == "proxy":
@@ -169,16 +197,18 @@ def serve(argv=None) -> dict:
         print(f"[serve] fresh init in {restore_s:.3f}s")
 
     B, P, G = args.batch, args.prompt_len, args.gen
-    rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)).to(device)
+    batch = _prompt(cfg, B, P, device)
+    prompt, patches = batch["inputs"], batch.get("patches")
+    positions = P + (cfg.num_patches if patches is not None else 0)
 
     with torch.no_grad():
         t1 = time.perf_counter()
-        logits, cache = model.prefill(params, {"inputs": prompt}, P + G)
+        logits, cache = model.prefill(params, batch, positions + G)
         _sync(device)
         ttft = time.perf_counter() - t1
-        print(f"[serve] prefill({P} tokens) -> first logits in {ttft:.3f}s")
+        what = f"{cfg.num_patches} patches + {P} tokens" if patches is not None else \
+            f"{P} tokens"
+        print(f"[serve] prefill({what}) -> first logits in {ttft:.3f}s")
 
         toks = logits[:, -1].argmax(dim=-1).to(torch.int32)
         out, outs_logits = [toks], [logits[:, -1]]
@@ -195,7 +225,7 @@ def serve(argv=None) -> dict:
     tokens = torch.stack(out, dim=1).cpu().numpy()
     print(f"[serve] sample tokens: {tokens[:, 0].tolist()}")
     return {"tokens": tokens, "logits": torch.stack(outs_logits, dim=1),
-            "prompt": prompt, "params": params, "step": step,
+            "prompt": prompt, "patches": patches, "params": params, "step": step,
             "restore_s": restore_s, "ttft_s": ttft, "decode_tok_s": decode_tok_s}
 
 

@@ -85,11 +85,14 @@ def mlp_apply(wi: torch.Tensor, wo: torch.Tensor, wg: torch.Tensor | None,
 # ---------------------------------------------------------------------------
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, scale: float) -> torch.Tensor:
+                    causal: bool, scale: float,
+                    prefix_len: int | None = None) -> torch.Tensor:
     """Materialized-scores path for short sequences. GQA without kv repeat.
 
-    The causal mask is right-aligned (``col <= row + Sk - Sq``); masked
-    logits are -1e30, as in the reference.
+    The causal mask is right-aligned (``col <= row + Sk - Sq``), and a
+    ``prefix_len`` opens the first keys to every row (``col < prefix_len``:
+    the prefix-LM's bidirectional prefix); masked logits are -1e30, as in
+    the reference.
     """
     B, Hq, Sq, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -99,7 +102,10 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         rows = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
         cols = torch.arange(Sk, device=q.device)[None, :]
-        s = torch.where(cols <= rows, s, -1e30)
+        ok = cols <= rows
+        if prefix_len is not None:
+            ok = ok | (cols < prefix_len)
+        s = torch.where(ok, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(B, Hq, Sq, Dh).to(q.dtype)
@@ -107,21 +113,23 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, scale: float, block_q: int,
-                      block_k: int) -> torch.Tensor:
+                      block_k: int, prefix_len: int | None = None) -> torch.Tensor:
     """Long-S lowering: the reference's ``_chunked_attention`` (bounded
-    memory, online softmax over key blocks), through ``ops.flash_attention``.
+    memory, online softmax over key blocks, the same prefix-LM mask as
+    :func:`dense_attention`), through ``ops.flash_attention``.
 
     On the CPU that is the blocked plain version and its plain backward; on
     the card the flash kernel and, when a gradient is taken, the backward
     kernel (neither ever gives way to the plain version).
     """
     return ops.flash_attention(q, k, v, causal=causal, scale=scale,
-                               block_q=block_q, block_k=block_k)
+                               block_q=block_q, block_k=block_k, prefix_len=prefix_len)
 
 
 def multihead_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True,
+    prefix_len: int | None = None,
     scale: float | None = None,
     chunked_threshold: int = 4096,
     block_q: int = 512,
@@ -131,8 +139,8 @@ def multihead_attention(
     bq, bk = min(block_q, q.shape[2]), min(block_k, k.shape[2])
     if q.shape[2] >= chunked_threshold and q.shape[2] % bq == 0 and k.shape[2] % bk == 0:
         return chunked_attention(q, k, v, causal=causal, scale=scale,
-                                 block_q=bq, block_k=bk)
-    return dense_attention(q, k, v, causal=causal, scale=scale)
+                                 block_q=bq, block_k=bk, prefix_len=prefix_len)
+    return dense_attention(q, k, v, causal=causal, scale=scale, prefix_len=prefix_len)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -25,9 +25,15 @@ batch dims and recomputes the rest. Remat changes memory, never values.
 The forward also gives the MoE layers' summed router aux loss
 (``return_aux``; 0 for a dense model), which the loss adds.
 
-The SSM and hybrid families are ``models/hybrid.py``. Not ported:
-``prefix_len`` (prefix-LM masking; it belongs with the multimodal models
-that use it) and the vision and audio frontends.
+The forward takes token ids or, like the reference's ``forward``,
+embeddings (``embeds``), and a ``prefix_len``: the first ``prefix_len``
+positions form a bidirectional prefix (PaliGemma's prefix-LM attention),
+the rest is causal. The module carries the leaves of the reference's
+multimodal models (``models/multimodal.py`` runs them): with the vision
+frontend ``vision_proj`` (D, D) beside the dense leaves; with the audio
+frontend no ``embed`` and no ``lm_head`` but ``codebook_embed`` and
+``codebook_head`` (K, V, D). The SSM and hybrid families are
+``models/hybrid.py``.
 """
 from __future__ import annotations
 
@@ -155,7 +161,8 @@ def _finish(cfg: ModelConfig, w: dict, x: torch.Tensor, h: torch.Tensor,
     return x + out, aux
 
 
-def _layer(cfg: ModelConfig, w: dict, x: torch.Tensor, positions: torch.Tensor):
+def _layer(cfg: ModelConfig, w: dict, x: torch.Tensor, positions: torch.Tensor,
+           prefix_len: int | None = None):
     """One layer over (B, S, D) from its weights ``w`` -> (x, post-RoPE k,
     v (B, Hkv, S, Dh), the MoE aux or None). A function of its arguments
     alone, so remat can run it again in the backward."""
@@ -164,7 +171,7 @@ def _layer(cfg: ModelConfig, w: dict, x: torch.Tensor, positions: torch.Tensor):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     attn_out = multihead_attention(
-        q, k, v, causal=True,
+        q, k, v, causal=True, prefix_len=prefix_len,
         chunked_threshold=cfg.attn_chunked_threshold,
         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
     )
@@ -236,12 +243,12 @@ class Blocks(nn.Module):
         return w
 
     def layer(self, cfg: ModelConfig, i: int, x: torch.Tensor,
-              positions: torch.Tensor):
+              positions: torch.Tensor, prefix_len: int | None = None):
         """Layer i over (B, S, D) -> (x, post-RoPE k, v (B, Hkv, S, Dh), the
         MoE aux or None), rematerialised per ``cfg.remat`` when a gradient
         is being taken."""
         w = self.weights(cfg, i)
-        fn = functools.partial(_layer, cfg)
+        fn = functools.partial(_layer, cfg, prefix_len=prefix_len)
         if torch.is_grad_enabled() and (x.requires_grad or any(
                 t.requires_grad for t in flatten_with_paths(w)[0].values())):
             fn = _remat(cfg, fn)
@@ -265,65 +272,74 @@ class Blocks(nn.Module):
 
 
 class Transformer(nn.Module):
-    """tokens (B, S) -> final hidden (B, S, D), or f32 logits (B, S, V)."""
+    """tokens (B, S) or embeddings (B, S, D) -> final hidden (B, S, D), or
+    f32 logits (B, S, V)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend} frontend is not ported to PyTorch yet"
-            )
+        if cfg.frontend not in ("none", "vision", "audio"):
+            raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
         if cfg.family not in ("dense", "moe"):
             raise ValueError(f"{cfg.name}: the Transformer runs the dense and moe "
                              f"families; {cfg.family} runs in models/hybrid.py")
         self.cfg = cfg
         dtype = torch_dtype(cfg.param_dtype)
-        self.embed = _param(cfg.vocab_size, cfg.d_model, dtype=dtype)
+        D, V = cfg.d_model, cfg.vocab_size
+        if cfg.frontend == "audio":
+            # the reference's audio_init: per-codebook tables replace both
+            self.codebook_embed = _param(cfg.audio_codebooks, V, D, dtype=dtype)
+            self.codebook_head = _param(cfg.audio_codebooks, V, D, dtype=dtype)
+        else:
+            self.embed = _param(V, D, dtype=dtype)
+            if not cfg.tie_embeddings:
+                self.lm_head = _param(V, D, dtype=dtype)
+        if cfg.frontend == "vision":
+            self.vision_proj = _param(D, D, dtype=dtype)
         self.blocks = Blocks(cfg, dtype)
-        self.final_norm = _param(cfg.d_model, dtype=dtype)
-        if not cfg.tie_embeddings:
-            self.lm_head = _param(cfg.vocab_size, cfg.d_model, dtype=dtype)
+        self.final_norm = _param(D, dtype=dtype)
 
     def lm_table(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.lm_head
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = embed_lookup(self.embed, tokens)
-        if self.cfg.embed_scale:
-            x = x * torch.tensor(np.sqrt(self.cfg.d_model), dtype=x.dtype,
-                                 device=x.device)
-        return x
+        return _embed(self.cfg, self.embed, tokens)
 
-    def forward(self, tokens: torch.Tensor, *, logits: bool = False,
-                return_cache: bool = False, return_aux: bool = False,
-                cache: dict | None = None):
+    def forward(self, tokens: torch.Tensor | None = None, *,
+                embeds: torch.Tensor | None = None, prefix_len: int | None = None,
+                logits: bool = False, return_cache: bool = False,
+                return_aux: bool = False, cache: dict | None = None):
         """The full forward, or with ``cache`` one decode step.
 
-        Without ``cache``: tokens (B, S) -> final hidden (B, S, D), or f32
-        logits (B, S, V) with ``logits``; with ``return_cache`` also
-        ``{"k", "v"}``, the stacked post-RoPE k/v (L, B, Hkv, S, Dh); with
-        ``return_aux`` last the layers' summed MoE aux loss (f32 scalar).
+        Without ``cache``: tokens (B, S), or ``embeds`` (B, S, D) in their
+        place, -> final hidden (B, S, D), or f32 logits (B, S, V) with
+        ``logits``; ``prefix_len`` makes the first positions a bidirectional
+        prefix; with ``return_cache`` also ``{"k", "v"}``, the stacked
+        post-RoPE k/v (L, B, Hkv, S, Dh); with ``return_aux`` last the
+        layers' summed MoE aux loss (f32 scalar).
 
         With ``cache`` (``{"k", "v"}`` of (L, B, Hkv, Smax, Dh) and ``pos``,
         the index the new token is written at): tokens (B,) -> f32 logits
-        (B, V). The new k/v go into the cache's buffers in place.
+        (B, V), or ``embeds`` (B, 1, D) -> the final hidden (B, 1, D). The
+        new k/v go into the cache's buffers in place.
         """
         cfg = self.cfg
         if cache is not None:
             pos = int(cache["pos"])
-            x = self.embed_tokens(tokens[:, None])
+            x = embeds if embeds is not None else self.embed_tokens(tokens[:, None])
             positions = torch.tensor([pos], device=x.device)
             for i in range(cfg.num_layers):
                 x = self.blocks.decode_layer(cfg, i, x, pos, positions,
                                              cache["k"][i], cache["v"][i])
             x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+            if embeds is not None:
+                return x
             return logits_from_embed(self.lm_table(), x)[:, 0]
-        x = self.embed_tokens(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = embeds if embeds is not None else self.embed_tokens(tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
         ks, vs = [], []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.num_layers):
-            x, k, v, a = self.blocks.layer(cfg, i, x, positions)
+            x, k, v, a = self.blocks.layer(cfg, i, x, positions, prefix_len)
             if a is not None:
                 aux = aux + a
             if return_cache:
@@ -413,6 +429,42 @@ def lm_table(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
+def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    x = embed_lookup(table, tokens)
+    if cfg.embed_scale:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> embeddings (B, S, D), times sqrt(D) where the config
+    scales them (gemma's)."""
+    return _embed(cfg, params["embed"], tokens)
+
+
+def forward(module: Transformer, params: dict, x: torch.Tensor, *,
+            prefix_len: int | None = None, return_cache: bool = False):
+    """The reference's ``forward``: embeddings x (B, S, D) -> (final hidden
+    (B, S, D), the stacked k/v ``{"k", "v"}`` with ``return_cache`` or None,
+    the MoE aux loss)."""
+    out = functional_call(module, module_params(params), (None,),
+                          {"embeds": x, "prefix_len": prefix_len,
+                           "return_cache": return_cache, "return_aux": True})
+    if return_cache:
+        return out
+    h, aux = out
+    return h, None, aux
+
+
+def pad_cache(k: torch.Tensor, v: torch.Tensor, cache_len: int):
+    """Stacked k/v (L, B, Hkv, S, Dh) zero-padded along S to ``cache_len``."""
+    S = k.shape[3]
+    if cache_len > S:
+        k = F.pad(k, (0, 0, 0, cache_len - S))
+        v = F.pad(v, (0, 0, 0, cache_len - S))
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # serving: prefill and decode with a KV cache
 # ---------------------------------------------------------------------------
@@ -423,18 +475,14 @@ def prefill(module: Transformer, params: dict, tokens: torch.Tensor,
 
     tokens (B, S) -> f32 logits of the last position only (B, 1, V), and
     ``{"k", "v"}`` (L, B, Hkv, cache_len, Dh) zero-padded past S, with
-    ``pos`` = S, the index the next token is written at.
+    ``pos`` = S, the index the next token is written at. ``prefix_len``
+    makes the first positions a bidirectional prefix.
     """
-    if prefix_len is not None:
-        raise NotImplementedError("prefix_len (prefix-LM serving) is not ported yet")
     B, S = tokens.shape
     cache_len = cache_len or S
     h, cache = functional_call(module, module_params(params), (tokens,),
-                               {"return_cache": True})
-    k, v = cache["k"], cache["v"]
-    if cache_len > S:
-        k = F.pad(k, (0, 0, 0, cache_len - S))
-        v = F.pad(v, (0, 0, 0, cache_len - S))
+                               {"return_cache": True, "prefix_len": prefix_len})
+    k, v = pad_cache(cache["k"], cache["v"], cache_len)
     logits = logits_from_embed(lm_table(module.cfg, params), h[:, -1:, :])
     return logits, {"k": k, "v": v, "pos": S}
 

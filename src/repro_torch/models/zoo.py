@@ -1,5 +1,5 @@
-"""Model zoo: one API over the ported families (the dense and MoE text
-transformers, the SSM and hybrid models).
+"""Model zoo: one API over every family (the dense and MoE text
+transformers, the SSM and hybrid models, the vision and audio models).
 
 ``build(cfg)`` returns a ``Model`` whose functions take the params as a
 nested dict of tensors (the checkpointed state), like the reference's:
@@ -11,6 +11,11 @@ nested dict of tensors (the checkpointed state), like the reference's:
     prefill(params, batch, cache_len) -> (logits (B, 1, V) f32, cache)
     decode(params, cache, tokens)     -> (logits (B, V) f32, cache)
     init_cache(batch, cache_len, device=...) -> cache
+
+A batch holds ``inputs`` (and ``targets``) of token ids (B, S); the vision
+model's also ``patches`` (B, P, D), its logits are the text's; the audio
+model's ids are (B, S, K), its logits (B, S, K, V) and its decode takes
+(B, K) and gives (B, K, V).
 
 The ``nn.Module`` program lives on the ``meta`` device and runs on the
 params through ``torch.func.functional_call``.
@@ -24,6 +29,7 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.models import hybrid as hyb
+from repro_torch.models import multimodal as mm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import logits_from_embed
@@ -95,20 +101,25 @@ class Model:
     init_cache: Callable
 
 
-def _build_dense_or_moe(cfg: ModelConfig) -> Model:
+def _hidden_xent(cfg: ModelConfig, params, hidden, targets):
+    table = lm_table(cfg, params)
+    if cfg.ce_chunk_tokens:
+        return chunked_lm_xent(hidden, table, targets, chunk_tokens=cfg.ce_chunk_tokens)
+    return softmax_xent(logits_from_embed(table, hidden), targets)
+
+
+def _meta_transformer(cfg: ModelConfig) -> tfm.Transformer:
     with torch.device("meta"):
-        module = tfm.Transformer(cfg)
+        return tfm.Transformer(cfg)
+
+
+def _build_dense_or_moe(cfg: ModelConfig) -> Model:
+    module = _meta_transformer(cfg)
 
     def loss(params, batch):
         h, aux = functional_call(module, module_params(params), (batch["inputs"],),
                                  {"return_aux": True})
-        table = lm_table(cfg, params)
-        if cfg.ce_chunk_tokens:
-            l, ce = chunked_lm_xent(
-                h, table, batch["targets"], chunk_tokens=cfg.ce_chunk_tokens
-            )
-        else:
-            l, ce = softmax_xent(logits_from_embed(table, h), batch["targets"])
+        l, ce = _hidden_xent(cfg, params, h, batch["targets"])
         return l + aux, {"loss": l, "ce": ce, "aux": aux}
 
     def forward(params, batch):
@@ -160,11 +171,69 @@ def _build_ssm_or_hybrid(cfg: ModelConfig) -> Model:
     )
 
 
+def _build_vlm(cfg: ModelConfig) -> Model:
+    module = _meta_transformer(cfg)
+
+    def loss(params, batch):
+        h, aux = mm.vlm_hidden(module, params, batch["patches"], batch["inputs"])
+        l, ce = _hidden_xent(cfg, params, h, batch["targets"])
+        return l + aux, {"loss": l, "ce": ce, "aux": aux}
+
+    return Model(
+        cfg=cfg,
+        init=lambda generator, device=None: mm.vlm_init(cfg, generator, device),
+        loss=loss,
+        forward=lambda params, batch: mm.vlm_forward(
+            module, params, batch["patches"], batch["inputs"])[0],
+        prefill=lambda params, batch, cache_len: mm.vlm_prefill(
+            module, params, batch["patches"], batch["inputs"], cache_len),
+        decode=lambda params, cache, tokens: mm.vlm_decode_step(
+            module, params, cache, tokens),
+        init_cache=lambda batch, cache_len, *, device: tfm.init_cache(
+            cfg, batch, cache_len, device=device
+        ),
+    )
+
+
+def _build_audio(cfg: ModelConfig) -> Model:
+    module = _meta_transformer(cfg)
+
+    def loss(params, batch):
+        h, aux = mm.audio_hidden(module, params, batch["inputs"])
+        if cfg.ce_chunk_tokens:
+            K = cfg.audio_codebooks
+            ls, ces = [], []
+            for k in range(K):
+                lk, cek = chunked_lm_xent(h, params["codebook_head"][k],
+                                          batch["targets"][..., k],
+                                          chunk_tokens=cfg.ce_chunk_tokens)
+                ls.append(lk)
+                ces.append(cek)
+            l, ce = sum(ls) / K, sum(ces) / K
+        else:
+            l, ce = softmax_xent(mm._audio_logits(cfg, params, h), batch["targets"])
+        return l + aux, {"loss": l, "ce": ce, "aux": aux}
+
+    return Model(
+        cfg=cfg,
+        init=lambda generator, device=None: mm.audio_init(cfg, generator, device),
+        loss=loss,
+        forward=lambda params, batch: mm.audio_forward(module, params, batch["inputs"])[0],
+        prefill=lambda params, batch, cache_len: mm.audio_prefill(
+            module, params, batch["inputs"], cache_len),
+        decode=lambda params, cache, tokens: mm.audio_decode_step(
+            module, params, cache, tokens),
+        init_cache=lambda batch, cache_len, *, device: tfm.init_cache(
+            cfg, batch, cache_len, device=device
+        ),
+    )
+
+
 def build(cfg: ModelConfig) -> Model:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported to PyTorch yet"
-        )
+    if cfg.frontend == "vision":
+        return _build_vlm(cfg)
+    if cfg.frontend == "audio":
+        return _build_audio(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return _build_ssm_or_hybrid(cfg)
     if cfg.family in ("dense", "moe"):

@@ -232,25 +232,27 @@ class Tracer:
             }
         )
 
-    def begin(self, name: str, **args) -> None:
+    def begin(self, name: str, *, ts_us: int | None = None, **args) -> None:
+        """``B`` event at ``ts_us`` (wall-clock microseconds), or now."""
         self._emit(
             {
                 "name": name,
                 "ph": "B",
                 "pid": os.getpid(),
                 "tid": threading.get_native_id(),
-                "ts": time.time_ns() // 1000,
+                "ts": time.time_ns() // 1000 if ts_us is None else int(ts_us),
                 "args": args,
             }
         )
 
-    def end(self, name: str, **args) -> None:
+    def end(self, name: str, *, ts_us: int | None = None, **args) -> None:
+        """``E`` event at ``ts_us`` (wall-clock microseconds), or now."""
         ev = {
             "name": name,
             "ph": "E",
             "pid": os.getpid(),
             "tid": threading.get_native_id(),
-            "ts": time.time_ns() // 1000,
+            "ts": time.time_ns() // 1000 if ts_us is None else int(ts_us),
         }
         if args:
             ev["args"] = args

@@ -224,6 +224,50 @@ def test_flash_kernel_scale_and_strided_v(cuda):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+# (B, Hq, Hkv, Sq, Sk, D, prefix_len): the prefix-LM mask at head dims 64,
+# 128 and 256 (paligemma's): a prefix inside one key tile, across tiles,
+# with rows that have no causal key (Sq > Sk), with ragged tiles, and at or
+# past Sk (every key open to every row)
+FLASH_PREFIX_CASES = [
+    (1, 4, 2, 256, 256, 64, 16),
+    (1, 14, 2, 200, 200, 64, 130),
+    (1, 2, 1, 256, 128, 64, 40),
+    (1, 8, 1, 320, 320, 128, 96),
+    (1, 2, 1, 200, 120, 128, 200),
+    (1, 8, 1, 256, 256, 256, 64),
+    (2, 8, 1, 384, 384, 256, 256),
+    (1, 4, 2, 200, 200, 256, 70),
+    (1, 2, 1, 256, 128, 256, 5),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_PREFIX_CASES, ids=str)
+def test_flash_kernel_with_a_prefix_matches_plain(cuda, dtype, case):
+    B, Hq, Hkv, Sq, Sk, D, prefix = case
+    q, k, v = _flash_inputs(cuda, B, Hq, Hkv, Sq, Sk, D, dtype, seed=3)
+    got, m, l = flash_attention.flash_attention(q, k, v, prefix_len=prefix, stats=True)
+    want, pm, pl = ref.flash_attention_plain(q, k, v, block_q=_block(Sq), block_k=_block(Sk),
+                                             return_stats=True, prefix_len=prefix)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+    assert bool((m > -1e29).all())  # with a prefix every row has a key
+
+
+def test_flash_backward_refuses_a_prefix_and_head_dim_256(cuda):
+    """Through ``ops.flash_attention`` with a gradient: raises before the
+    forward runs, naming the ROADMAP item; never the plain version."""
+    before = flash_attention.flash_attention.launches
+    for D, prefix in ((64, 16), (256, 0)):
+        q, k, v = (t.requires_grad_(True) for t in _flash_inputs(
+            cuda, 1, 2, 1, 128, 128, D, torch.bfloat16))
+        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 4"):
+            ops.flash_attention(q, k, v, prefix_len=prefix)
+    assert flash_attention.flash_attention.launches == before
+
+
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     q, k, v = _flash_inputs(cuda, 1, 2, 1, 64, 64, 64, torch.float32)
     with pytest.raises(ValueError, match="head dim D"):

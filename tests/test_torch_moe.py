@@ -33,7 +33,7 @@ from repro.configs import get_config as ref_get_config
 from repro.models import moe as rmoe
 from repro.utils.tree import flatten_with_paths as ref_flatten
 from repro_torch.configs import get_config, list_archs
-from repro_torch.models import ModelConfig, build
+from repro_torch.models import build
 from repro_torch.models import moe
 from repro_torch.models.convert import state_from_numpy
 from repro_torch.utils.tree import flatten_with_paths
@@ -65,15 +65,6 @@ def test_config_is_the_reference_and_registered(name):
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(ref_get_config(name))
     assert dataclasses.asdict(get_config(name, smoke=True)) == dataclasses.asdict(
         ref_get_config(name, smoke=True))
-
-
-@pytest.mark.parametrize("name", ["paligemma-3b", "musicgen-medium"])
-def test_unported_families_still_raise_naming_the_family(name):
-    ref = ref_get_config(name, smoke=True)
-    cfg = ModelConfig(**dataclasses.asdict(ref))
-    what = ref.family if ref.frontend == "none" else ref.frontend
-    with pytest.raises(NotImplementedError, match=what):
-        build(cfg)
 
 
 @pytest.mark.parametrize("name", ARCHS)

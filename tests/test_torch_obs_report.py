@@ -461,6 +461,10 @@ def test_cluster_rounds_all_rooted_and_check_green(tmp_path):
             r["span_s"] * 1e6, rel=1e-6)
         assert abs(r["span_s"] - r["round_s"]) <= max(
             critpath.CHECK_REL * r["round_s"], critpath.CHECK_ABS_S)
+        # the root span is placed from round_s's own clock readings, so it
+        # is round_s to the trace's microsecond: no thread's wait between
+        # two readings (a GIL switch, a busy CPU) can push them apart
+        assert abs(r["span_s"] - r["round_s"]) <= 1e-6, r
         assert r["critical_path"] and r["critical_host"] is not None
     assert critpath.check(doc) == []
     assert critpath.main([obs, "--journal", jpath, "--check"]) == 0

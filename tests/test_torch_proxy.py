@@ -20,6 +20,8 @@ its test instead of the run; nothing waits on a sleep.
 """
 import os
 import signal
+import socket
+import time
 
 import jax
 import jax.numpy as jnp
@@ -639,9 +641,44 @@ def test_train_arch_step_matches_reference_step_fn():
 
 # -- across packages ---------------------------------------------------------------
 
-def _schedule(cls, fused):
+def _stopped(pid: int, timeout: float = 30.0) -> None:
+    """Wait until ``pid`` is stopped (state T in /proc/<pid>/stat)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(f"/proc/{pid}/stat") as f:
+            if f.read().rsplit(")", 1)[1].split()[0] in ("T", "t"):
+                return
+        assert time.monotonic() < deadline, f"proxy {pid} did not stop"
+        time.sleep(0.001)
+
+
+def _parked(proxy, epoch: int, timeout: float = 60.0) -> None:
+    """Read the proxy's frames until SYNCED{epoch} is parked in the client
+    (left there for ``sync_collect``)."""
+    deadline = time.monotonic() + timeout
+    while epoch not in proxy._synced:
+        assert time.monotonic() < deadline, f"no SYNCED({epoch})"
+        try:
+            msg = proxy.conn.recv()
+        except (socket.timeout, TimeoutError):
+            continue
+        assert msg is not None, "proxy EOF before its SYNCED"
+        proxy._absorb(msg)
+
+
+def _schedule(cls, fused, order="kill_first"):
     """A kill schedule: epoch and barrier syncs, a SIGKILL with steps in
-    flight, an in-flight epoch sync across a second kill."""
+    flight, an in-flight epoch sync across a second kill.
+
+    Whether the second kill lands before or after the proxy handles that
+    sync is the scheduler's to decide, and both are legitimate: the sync
+    then comes from the replay, just after the mirror's upload (no step has
+    run there, so nothing is prehashed), or from the killed incarnation,
+    after its steps (every chunk prehashed with fused digests). ``order``
+    forces one: ``"kill_first"`` stops the proxy before the sync is sent
+    and kills it stopped; ``"sync_first"`` waits until the sync's ack has
+    arrived, kills, and collects the ack before the next step (whose send
+    may or may not be the first to see the death)."""
     kw = dict(TIMEOUTS) if cls is ProxyRunner else {"op_timeout_s": 60.0,
                                                    "sync_timeout_s": 60.0}
     r = cls(SPEC, chunk_bytes=256, max_restarts=3, fused_digests=fused, **kw)
@@ -657,11 +694,20 @@ def _schedule(cls, fused):
         for s in range(9, 11):
             r.step(s)
         out.append(r.sync_state())
+        if order == "kill_first":
+            os.kill(r.proxy.pid, signal.SIGSTOP)
+            _stopped(r.proxy.pid)
         epoch = r.sync_begin()
         r.step(11)
-        r.kill()
-        r.step(12)
-        out.append(r.sync_collect(epoch))
+        if order == "sync_first":
+            _parked(r.proxy, epoch)
+            r.kill()
+            out.append(r.sync_collect(epoch))
+            r.step(12)
+        else:
+            r.kill()
+            r.step(12)
+            out.append(r.sync_collect(epoch))
         out.append(r.sync_state())
         out.append((None, {"restarts": r.restarts}))
     finally:
@@ -669,15 +715,29 @@ def _schedule(cls, fused):
     return out
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["scan", "fused"])
-def test_kill_schedule_matches_the_reference_runner(fused):
-    ref, port = _schedule(RefProxyRunner, fused), _schedule(ProxyRunner, fused)
+def _same_schedule(ref, port, prehashed):
     assert port[-1][1] == ref[-1][1] == {"restarts": 2}
     for (p_state, p_info), (r_state, r_info) in zip(port[:-1], ref[:-1]):
         assert _bytes_equal(p_state, r_state)
         for key in ("step", "digest", "chunks_synced", "bytes_synced", "chunk_digests"):
             assert p_info[key] == r_info[key], key
         assert p_info["phase_us"]["prehashed_chunks"] == r_info["phase_us"]["prehashed_chunks"]
+    assert [info["phase_us"]["prehashed_chunks"] for _, info in port[:-1]] == prehashed
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["scan", "fused"])
+def test_kill_schedule_matches_the_reference_runner(fused):
+    """The second kill lands before the proxy handles the in-flight sync."""
+    ref, port = _schedule(RefProxyRunner, fused), _schedule(ProxyRunner, fused)
+    _same_schedule(ref, port, [8, 8, 0, 8] if fused else [0, 0, 0, 0])
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["scan", "fused"])
+def test_kill_schedule_after_the_sync_matches_the_reference_runner(fused):
+    """The second kill lands after the proxy has handled the in-flight sync."""
+    ref = _schedule(RefProxyRunner, fused, "sync_first")
+    port = _schedule(ProxyRunner, fused, "sync_first")
+    _same_schedule(ref, port, [8, 8, 8, 8] if fused else [0, 0, 0, 0])
 
 
 def test_reference_image_continues_in_the_port_proxy_and_back(tmp_path):

@@ -133,15 +133,6 @@ def test_long_prefill_then_decode_matches_forward(cfg, tparams):
     _close(torch.stack(got, dim=1), full[:, S - 1 : S + G - 1], 1e-4)
 
 
-def test_prefix_len_is_not_ported(cfg, tparams):
-    from repro_torch.models import transformer as tfm
-
-    with torch.device("meta"):
-        module = tfm.Transformer(cfg)
-    with pytest.raises(NotImplementedError, match="prefix_len"):
-        tfm.prefill(module, tparams, torch.zeros((1, 8), dtype=torch.int32), 8, prefix_len=4)
-
-
 # -- the serve CLI ---------------------------------------------------------------
 
 def _train_argv(store):

@@ -9,6 +9,7 @@ the same scorecard (``test_torch_soak_torch.py`` runs the torch loop).
 """
 import json
 import os
+import re
 
 from repro.obs import soak as rsoak
 from repro_torch.obs.journal import JOURNAL_SCHEMA, read_journal
@@ -190,6 +191,23 @@ def test_envelope_and_leak_checks(tmp_path):
 # -- formats both ways ------------------------------------------------------------
 
 
+def _why(doc) -> str:
+    """A failed scorecard's reasons, for the assertion message."""
+    keep = ("checks", "leak_growth", "slow_rounds", "critpath_problems")
+    return json.dumps({**{k: doc.get(k) for k in keep},
+                       "unexplained": [a for a in doc["alerts"] if a["explained_by"] is None],
+                       "unevidenced": [i for i in doc["injections"] if not i["evidenced"]]},
+                      default=str)
+
+
+# critpath's span-vs-journal rule on the reference's own run: its
+# coordinator reads the round's root span and its journaled round_s from
+# separate clock readings, which a thread's wait between them (a GIL
+# switch, a busy CPU) pushes past the rule's 2 ms; the port reads both
+# from one (tests/test_torch_obs_report.py holds them to 1 us)
+_SPAN_VS_JOURNAL = re.compile(r"round \d+: span \S+s vs journal \S+s \(> 5% apart\)")
+
+
 def _judge_both(run_dir):
     """Each package's verdict CLI over one run dir: the same scorecard."""
     from repro_torch.obs import soak as psoak
@@ -215,7 +233,9 @@ def test_inject_log_and_scorecard_cross_package(tmp_path, monkeypatch):
     ``shm_leak_trend`` alert, ``no_unexplained_alerts``: its coordinator's
     /dev/shm series counts the machine's entries, which tests running
     beside it add to (the port's counts its own run's:
-    ``tests/test_torch_leakcheck.py``)."""
+    ``tests/test_torch_leakcheck.py``); and ``critpath_ok`` where its only
+    problems are rounds whose span and journaled duration a wait between
+    two clock readings put apart (``_SPAN_VS_JOURNAL``)."""
     from repro.chaos.soak import main as ref_soak
     from repro_torch.chaos.soak import main as soak
 
@@ -239,11 +259,13 @@ def test_inject_log_and_scorecard_cross_package(tmp_path, monkeypatch):
         assert [x["kind"] for x in lines] == ["torn_frame"]
         with open(os.path.join(run_dir, "soak_run.json")) as f:
             assert json.load(f)["schema"] == "crum-soak-run/1"
-    assert docs["port"]["pass"] and all(docs["port"]["checks"].values())
+    port = docs["port"]
+    assert port["pass"] and all(port["checks"].values()), _why(port)
     ref = docs["reference"]
     machine_shm = [a for a in ref["alerts"]
                    if a["explained_by"] is None and a["kind"] == "shm_leak_trend"]
     ref_checks = dict(ref["checks"], leaks_flat=True, no_unexplained_alerts=all(
-        a["explained_by"] is not None for a in ref["alerts"] if a not in machine_shm))
-    assert all(ref_checks.values()), (ref["checks"], ref["alerts"])
+        a["explained_by"] is not None for a in ref["alerts"] if a not in machine_shm),
+        critpath_ok=all(_SPAN_VS_JOURNAL.fullmatch(p) for p in ref["critpath_problems"]))
+    assert all(ref_checks.values()), _why(dict(ref, checks=ref_checks))
     assert docs["port"]["n_injections"] == docs["reference"]["n_injections"] == 1
