@@ -33,15 +33,19 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    for f32: dq, then dk and dv) on the forward kernel's output and
    statistics against ``flash_attention_bwd_plain`` on the plain forward's,
    over the same kinds of shapes, causal and not, groups of 1, 4, 7 and
-   12, rows with no key (m -1e30, dq exactly 0), head dims 32/64/128, the
-   model's transposed v and the training shape (run to run bitwise), with
+   12, rows with no key (m -1e30, dq exactly 0), head dims 32/64/128/256
+   (gemma-2b's heads: 8 q, 1 kv), the prefix-LM mask (a prefix of 1, of
+   16 and longer than a tile, with ragged Sq and Sk, at head dims 64, 128
+   and 256), the model's transposed v and both training shapes
+   (qwen2-0.5b's, and paligemma-3b's ``hd256p`` with the image a prefix;
+   run to run bitwise), with
    stated tolerances that must read a dk missing one head of the group, a
    dq missing one key tile and m in log base 2 more than 10x over, and a
    limit scaled per 64-row tile that must hold everywhere and read the
    last rows' dq without a key tile, and the last key tile's dk without
    one head's partial, over it; ``[build]`` prints each backward kernel's
-   registers and spills (``-Xptxas -v``), and the forward's at head dim
-   256, and fails on a spill;
+   registers and spills (``-Xptxas -v``), and both kernels' at head dim
+   256 on both routes, and fails on a spill;
 3. the training path through ``repro_torch.launch.train``: qwen2-0.5b at full
    width and depth, batch 4, seq 512, 6 steps, a checkpoint every 2 steps
    with the fork persist backend. The codec is ``none`` by default, not the
@@ -101,7 +105,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    kernel's launches on every later path too (``launches_train_long``,
    ``launches_proxy``, ``_uvm_inline``, ``_uvm_proxy``, ``_serve_proxy``,
    ``_cluster``, ``_cluster_proxy``, ``_cluster_remote``, ``_moe``,
-   ``_hybrid``, ``_multimodal``: counted where
+   ``_multimodal_long``, ``_hybrid``, ``_multimodal``: counted where
    they ran; the backward's are null on paths counted in other processes,
    which report the digest and the forward only, at seq 512);
    ``[train:long]``: the train CLI on qwen2-0.5b at full width and depth,
@@ -125,6 +129,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    (five products), its plain version and the library's fused attention
    backward (forward + backward minus forward, with and without
    deterministic algorithms), the ``flash_attention_bwd`` row of the JSON;
+   a second line at one layer of paligemma-3b at batch 2, q (2, 8, 8192,
+   256), k = v (2, 1, 8192, 256), the image's 256 patches a prefix, the
+   row's ``hd256p`` (the library with the boolean prefix-or-causal mask
+   and with ``is_causal``);
 7. the proxy path (``[proxy]``): qwen2-0.5b at full width and 2 of its
    24 layers (a cut for the script's time), batch 4, seq 512, 6 steps, a
    checkpoint every 2 steps, fork backend,
@@ -191,7 +199,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    params, within the bf16 forward's distance from the f32 forward over
    the prompt; the prefill's last logits must equal the forward over the
    prompt (the same routing groups) bit for bit, and the forward's dropped
-   slots are printed. Its two images (18 GB) go when it ends;
+   slots are printed. Its two images (18 GB) go when it ends.
+   ``[multimodal:long]``: paligemma-3b at full width and 2 of its 18
+   layers (as ``[multimodal]`` cuts it) trained by the train CLI at batch
+   1 over 256 patches + 7,936 text tokens (8,192 positions: the chunked
+   lowering, the flash forward and backward at head dim 256 with
+   ``prefix_len`` 256), ``remat="dots"``, 4 steps, one fork checkpoint
+   at step 2, codec none: per step exactly 2 x 2 forward launches and 2
+   backward calls on the tensor-core routes, counted for the step's
+   thread too, finite loss and gradient norm, its ms and peak GB; the
+   step-2 image run to step 4 bitwise equal to the run;
 9. the cluster (``[cluster]``): ``repro_torch.coord.run_cluster`` with 2
    ranks on the card, each a spawned process holding a full replica of
    qwen2-0.5b at full width and 2 of its 24 layers (the train program of
@@ -285,7 +302,8 @@ Order and overlap: 1 to 4, 5's ``[serve]``, 6 and ``[train:long]`` run one
 after another with the card to themselves, so the kernels' times are
 taken alone. Then 7, 9, 10 and 11 run in a second process of this script
 (``--lane``, its output printed when it ends) while this one runs
-``[serve:proxy]``, 8 and ``[moe]``: the two lanes share no state, each path counts
+``[serve:proxy]``, 8, ``[moe]`` and ``[multimodal:long]``: the two lanes
+share no state, each path counts
 its launches in its own processes, and their wall times and step times
 are taken beside the other lane's work. The lane must end with 0 within
 ``SCRIPT_BUDGET_S`` of the script's start; on any failure it is stopped,
@@ -402,9 +420,18 @@ def phase_card() -> str:
     print("[build] backward, 16-bit route, -Xptxas -v: " + " ".join(
         f"{r['kernel']}<{r['dtype']},{r['d']}>:regs={r['registers']},"
         f"spill={r['spill_stores']}/{r['spill_loads']}" for r in report), flush=True)
-    if len(report) != 14 or any(r["spill_stores"] or r["spill_loads"] for r in report):
-        raise SystemExit(f"the backward's 16-bit kernels: {len(report)} of 14 reported, or "
+    if len(report) != 18 or any(r["spill_stores"] or r["spill_loads"] for r in report):
+        raise SystemExit(f"the backward's 16-bit kernels: {len(report)} of 18 reported, or "
                          f"a spill: {report}")
+    # the backward at head dim 256, both routes: dq alone is 128 f32
+    # registers a thread on the tensor cores, dk and dv split by columns
+    bwd_wide = [r for r in _build.ptxas_report(libs[2]) if r["d"] == 256]
+    print("[build] backward at head dim 256, -Xptxas -v: " + " ".join(
+        f"{r['kernel']}<{r['dtype'] or 'f32'},{r['d']}>:regs={r['registers']},"
+        f"spill={r['spill_stores']}/{r['spill_loads']}" for r in bwd_wide), flush=True)
+    if len(bwd_wide) != 6 or any(r["spill_stores"] or r["spill_loads"] for r in bwd_wide):
+        raise SystemExit(f"the backward at head dim 256: {len(bwd_wide)} of 6 kernels "
+                         f"reported, or a spill: {bwd_wide}")
     # the forward at paligemma's head dim 256: the O accumulator alone is
     # 128 f32 registers a thread on the tensor-core route
     wide = [r for r in _build.ptxas_report(libs[1]) if r["d"] == 256]
@@ -699,14 +726,15 @@ def _bwd_tile_ratio(got: torch.Tensor, want: torch.Tensor,
     return float(ratio.max())
 
 
-def _flash_bwd_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, causal=True):
+def _flash_bwd_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, causal=True, prefix_len=0):
     """The kernel forward's output and statistics on ``_flash_inputs``, and
     a dO: what a backward gets."""
     from repro_torch.kernels import flash_attention
 
     q, k, v = _flash_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen)
     do = torch.randn((B, Hq, Sq, D), generator=gen, device="cuda").to(dtype)
-    o, m, l = flash_attention.flash_attention(q, k, v, causal=causal, stats=True)
+    o, m, l = flash_attention.flash_attention(q, k, v, causal=causal, stats=True,
+                                              prefix_len=prefix_len)
     return q, k, v, o, m, l, do
 
 
@@ -718,7 +746,7 @@ def _stats_ratio(m, l, pm, pl) -> float:
     return float(torch.maximum(dm, dl))
 
 
-def _flash_bwd_vs_plain(ins, *, causal=True, blocks=None):
+def _flash_bwd_vs_plain(ins, *, causal=True, blocks=None, prefix_len=0):
     """The forward's statistics and the backward kernel, each against its
     plain version: the kernel's backward takes the kernel forward's o, m
     and l, the plain backward the plain forward's, on the same q, k, v and
@@ -730,12 +758,13 @@ def _flash_bwd_vs_plain(ins, *, causal=True, blocks=None):
     q, k, v, o, m, l, do = ins
     bq, bk = blocks or (_plain_block(q.shape[2]), _plain_block(k.shape[2]))
     po, pm, pl = ref.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk,
-                                           return_stats=True)
+                                           return_stats=True, prefix_len=prefix_len)
     stats_ratio = _stats_ratio(m, l, pm, pl)
-    same_out = torch.equal(o, flash_attention.flash_attention(q, k, v, causal=causal))
-    got = flash_attention.flash_attention_bwd(*ins, causal=causal)
+    same_out = torch.equal(o, flash_attention.flash_attention(q, k, v, causal=causal,
+                                                              prefix_len=prefix_len))
+    got = flash_attention.flash_attention_bwd(*ins, causal=causal, prefix_len=prefix_len)
     want = ref.flash_attention_bwd_plain(q, k, v, po, pm, pl, do, causal=causal,
-                                         block_q=bq, block_k=bk)
+                                         block_q=bq, block_k=bk, prefix_len=prefix_len)
     for g, w, t in zip(got, want, ins[:3]):
         if g.dtype != t.dtype or g.shape != t.shape or not g.is_contiguous():
             raise SystemExit(f"flash_attention_bwd: got {g.dtype} {tuple(g.shape)}")
@@ -748,9 +777,11 @@ def phase_flash_bwd_sweep() -> None:
     """The forward's row statistics and the backward kernel (both routes)
     against their plain versions, the plain backward on the plain forward's
     output and statistics: the forward sweep's shapes, causal and not, head
-    dims 32/64/128, groups of 1 and 7, rows with no key (Sq > Sk), the
-    model's transposed v, and the training shape, with broken controls that
-    the tolerance must see."""
+    dims 32/64/128/256, groups of 1 and 7, rows with no key (Sq > Sk), the
+    prefix-LM mask (a prefix of 1, of 16 and longer than a tile, ragged Sq
+    and Sk, at head dims 64/128/256), gemma-2b's heads at 256, the model's
+    transposed v, and both training shapes (qwen2-0.5b's and paligemma-3b's
+    ``hd256p``), with broken controls that the tolerance must see."""
     from repro_torch.kernels import flash_attention, ref
 
     bwd = flash_attention.flash_attention_bwd
@@ -762,25 +793,43 @@ def phase_flash_bwd_sweep() -> None:
         (1, 2, 1, 256, 128, 64), (1, 7, 1, 200, 72, 32),    # Sq > Sk: rows with no key
         (1, 14, 2, 200, 200, 64), (1, 14, 2, 120, 200, 128),  # group of 7, ragged tiles
         (1, 8, 2, 333, 200, 128), (1, 12, 1, 300, 200, 64),   # groups of 4 and 12, Sq > Sk
+        (1, 8, 1, 256, 256, 256), (1, 8, 1, 200, 200, 256),   # gemma-2b's heads at 256
+        (1, 8, 1, 300, 200, 256),                             # ... with rows with no key
+    ]
+    # the prefix-LM mask, causal: (B, Hq, Hkv, Sq, Sk, D, prefix_len) a
+    # prefix of 1, of 16 and longer than a tile (64 keys; 32 in the dq
+    # kernel at D = 256), rows with no causal key, ragged tiles, past Sk.
+    # A prefix of 1 runs where Sq <= Sk: rows without a causal key would
+    # see key 0 alone, whose exact dq is 0, and a 64-row tile of them holds
+    # rounding noise only, on which the per-tile limit reads noise over
+    # noise (the plain version in f32 against f64 reads far past it there)
+    prefixed = [
+        (1, 4, 2, 256, 256, 64, 1), (1, 14, 2, 200, 200, 64, 16),
+        (1, 2, 1, 256, 128, 64, 40), (1, 7, 1, 200, 72, 64, 100),
+        (1, 8, 1, 320, 320, 128, 96), (1, 8, 2, 333, 200, 128, 16),
+        (1, 8, 2, 200, 264, 128, 1), (1, 2, 1, 200, 120, 128, 16),
+        (1, 8, 1, 256, 256, 256, 1), (1, 8, 1, 136, 200, 256, 1),
+        (1, 8, 1, 264, 264, 256, 16), (1, 4, 2, 200, 200, 256, 70),
+        (1, 2, 1, 256, 128, 256, 5), (2, 8, 1, 384, 384, 256, 256),
     ]
     worst, stats_worst, cases, nokey_dq, nokey_m, stats_same = {}, 0.0, 0, 0.0, True, True
     tile_worst = {}
     for dtype in FLASH_BWD_TOL:
-        for shape in shapes:
-            for causal in (True, False):
-                ins = _flash_bwd_inputs(*shape, dtype, gen, causal=causal)
-                ratio, _, st_ratio, same_out, got, want, _ = _flash_bwd_vs_plain(ins,
-                                                                                 causal=causal)
-                worst[dtype] = max(worst.get(dtype, 0.0), ratio)
-                tile_worst[dtype] = max(tile_worst.get(dtype, 0.0), *(
-                    _bwd_tile_ratio(g, w) for g, w in zip(got, want)))
-                stats_worst = max(stats_worst, st_ratio)
-                stats_same = stats_same and same_out
-                cases += 1
-                Sq, Sk = shape[3], shape[4]
-                if causal and Sq > Sk:  # rows with no key: dS is 0 there, m -1e30
-                    nokey_dq = max(nokey_dq, float(got[0][:, :, : Sq - Sk].abs().max()))
-                    nokey_m = nokey_m and bool((ins[4][:, :, : Sq - Sk] == -1e30).all())
+        for shape, causal, prefix in [(s, c, 0) for s in shapes for c in (True, False)] + [
+                (s[:6], True, s[6]) for s in prefixed]:
+            ins = _flash_bwd_inputs(*shape, dtype, gen, causal=causal, prefix_len=prefix)
+            ratio, _, st_ratio, same_out, got, want, _ = _flash_bwd_vs_plain(
+                ins, causal=causal, prefix_len=prefix)
+            worst[dtype] = max(worst.get(dtype, 0.0), ratio)
+            tile_worst[dtype] = max(tile_worst.get(dtype, 0.0), *(
+                _bwd_tile_ratio(g, w) for g, w in zip(got, want)))
+            stats_worst = max(stats_worst, st_ratio)
+            stats_same = stats_same and same_out
+            cases += 1
+            Sq, Sk = shape[3], shape[4]
+            if causal and Sq > Sk and not prefix:  # rows with no key: dS is 0 there, m -1e30
+                nokey_dq = max(nokey_dq, float(got[0][:, :, : Sq - Sk].abs().max()))
+                nokey_m = nokey_m and bool((ins[4][:, :, : Sq - Sk] == -1e30).all())
     # the training shape, one layer: qwen2-0.5b's heads at 8192 tokens
     ins = _flash_bwd_inputs(LONG_BATCH, 14, 2, LONG_SEQ, LONG_SEQ, 64, torch.bfloat16, gen)
     train_ratio, train_err, train_stats, same_out, got, want, plain_fwd = \
@@ -789,6 +838,18 @@ def phase_flash_bwd_sweep() -> None:
     cases += 1
     train_tile = max(_bwd_tile_ratio(g, w) for g, w in zip(got, want))
     same = all(torch.equal(a, b) for a, b in zip(got, flash_attention.flash_attention_bwd(*ins)))
+    # paligemma-3b's training shape, one layer (hd256p): the image's 256
+    # patches a prefix, the plain version at the model's blocks
+    vlm = _flash_bwd_inputs(1, 8, 1, LONG_SEQ, LONG_SEQ, 256, torch.bfloat16, gen,
+                            prefix_len=MM_PATCHES)
+    vlm_ratio, vlm_err, vlm_stats, vlm_same_out, vgot, vwant, _ = _flash_bwd_vs_plain(
+        vlm, blocks=(512, 1024), prefix_len=MM_PATCHES)
+    vlm_tile = max(_bwd_tile_ratio(g, w) for g, w in zip(vgot, vwant))
+    same = same and all(torch.equal(a, b) for a, b in zip(vgot, flash_attention.flash_attention_bwd(
+        *vlm, prefix_len=MM_PATCHES)))
+    stats_same = stats_same and vlm_same_out
+    cases += 1
+    del vlm, vgot, vwant
     # what the tolerance reads for a wrong kernel: (1) dk without the first
     # q head of each kv head's group of 7; (2) 128 rows' dq without their
     # first key tile (64 keys, which every one of them sees): rows 64..191,
@@ -845,24 +906,27 @@ def phase_flash_bwd_sweep() -> None:
         f"{last_ratio:.3g}x), m in log base 2 reads {log2_ratio:.3g}x; per "
         f"{FLASH_BWD_TILE_ROWS}-row tile (limit {FLASH_BWD_TILE_LIMIT:g}): " + " ".join(
             f"{str(d).replace('torch.', '')}_worst={e:.3g}x" for d, e in tile_worst.items())
-        + f" train_shape={train_tile:.3g}x; the last {T} rows' dS without a key tile reads "
+        + f" train_shape={train_tile:.3g}x hd256p (1, 8, {LONG_SEQ}, 256) prefix {MM_PATCHES}: "
+        f"{vlm_ratio:.3g}x (max_abs_err={vlm_err:.3g}, per tile {vlm_tile:.3g}x, stats "
+        f"{vlm_stats:.3g}x); the last {T} rows' dS without a key tile reads "
         f"{last_tile:.3g}x, the last key tile's dk without q head 0's partial "
         f"{part_tile:.3g}x (whole-tensor limit: {part_whole:.3g}x)", flush=True)
-    if max(max(worst.values()), train_ratio) > 1:
+    if max(max(worst.values()), train_ratio, vlm_ratio) > 1:
         raise SystemExit(f"flash_attention_bwd outside its tolerance: {worst} "
-                         f"train shape {train_ratio}")
-    if max(stats_worst, train_stats) > 1 or not stats_same or not nokey_m:
+                         f"train shape {train_ratio} hd256p {vlm_ratio}")
+    if max(stats_worst, train_stats, vlm_stats) > 1 or not stats_same or not nokey_m:
         raise SystemExit(f"flash_attention statistics: {stats_worst}x, train shape "
-                         f"{train_stats}x, output unchanged {stats_same}, no-key m {nokey_m}")
+                         f"{train_stats}x, hd256p {vlm_stats}x, output unchanged {stats_same}, "
+                         f"no-key m {nokey_m}")
     if nokey_dq != 0 or not same:
         raise SystemExit(f"flash_attention_bwd: rows with no key got dq {nokey_dq}, "
                          f"run to run equal {same}")
     if min(head_ratio, tile_ratio, log2_ratio) <= 10:
         raise SystemExit("the bf16 backward or statistics tolerance does not see a missing "
                          "head, a missing key tile or m in log base 2 by a wide factor")
-    if max(*tile_worst.values(), train_tile) > FLASH_BWD_TILE_LIMIT:
+    if max(*tile_worst.values(), train_tile, vlm_tile) > FLASH_BWD_TILE_LIMIT:
         raise SystemExit(f"flash_attention_bwd outside its per-tile limit: {tile_worst}, "
-                         f"train shape {train_tile}")
+                         f"train shape {train_tile}, hd256p {vlm_tile}")
     if min(last_tile, part_tile) <= FLASH_BWD_TILE_LIMIT:
         raise SystemExit(f"the per-tile limit does not see the last rows' missing key tile "
                          f"({last_tile}) or the last key tile's missing head ({part_tile})")
@@ -1509,22 +1573,26 @@ def phase_flash_timing(serve_launches: int) -> dict:
     return row
 
 
-def phase_flash_bwd_timing(train_long_launches: int) -> dict:
-    """The backward kernel at one layer of [train:long]'s shape: q (2, 14,
-    8192, 64), k = v (2, 2, 8192, 64), bf16, causal, v the model's
-    transposed view; beside its bound, its plain version (at the model's
-    attention blocks, 512 x 1024) and the library's fused attention
-    backward (SDPA forward + backward, minus its forward)."""
+def _flash_bwd_timed(B, Hq, Hkv, S, D, prefix: int, plain_reps: int) -> dict:
+    """The backward kernel at one training layer's shape (bf16, causal, the
+    first ``prefix`` keys open to every row, v the model's transposed
+    view): its ms, each of its kernels' device time from the profiler, its
+    scratch, its bound (five products over the unmasked pairs), its plain
+    version at the model's attention blocks (512 x 1024) and the library's
+    fused attention backward (SDPA forward + backward, minus its forward),
+    with ``is_causal`` and, with a prefix, with the boolean
+    prefix-or-causal mask (the same function), each with and without
+    deterministic algorithms; printed as one ``[timing] flash-bwd``
+    line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
 
-    B, Hq, Hkv, S, D = LONG_BATCH, 14, 2, LONG_SEQ, 64
     gen = torch.Generator(device="cuda").manual_seed(5)
-    ins = _flash_bwd_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16, gen)
+    ins = _flash_bwd_inputs(B, Hq, Hkv, S, S, D, torch.bfloat16, gen, prefix_len=prefix)
     kernel = flash_attention.flash_attention_bwd
-    ratio, err = _flash_bwd_vs_plain(ins, blocks=(512, 1024))[:2]  # warm-up too
-    ms = _time_ms(lambda: kernel(*ins), 10)
+    ratio, err = _flash_bwd_vs_plain(ins, blocks=(512, 1024), prefix_len=prefix)[:2]  # warm-up
+    ms = _time_ms(lambda: kernel(*ins, prefix_len=prefix), 10)
     scratch = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size() for shape, dt in
                   flash_attention.bwd_scratch(torch.bfloat16, B, Hq, Hkv, S, S, D).values())
     # the kernels each call launches and each one's device time, from the
@@ -1532,79 +1600,108 @@ def phase_flash_bwd_timing(train_long_launches: int) -> dict:
     calls = 3
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            kernel(*ins)
+            kernel(*ins, prefix_len=prefix)
         torch.cuda.synchronize()
     traced = [e for e in prof.key_averages() if "flash_bwd_" in e.key and e.count]
     split = {name: e.device_time_total / e.count / 1e3 for e in traced
              for name, full in BWD_KERNELS.items() if full in e.key}
     per_call = sum(e.count for e in traced) / calls
-    plain_ms = _time_ms(lambda: ref.flash_attention_bwd_plain(*ins, block_q=512,
-                                                              block_k=1024), 2)
+    plain_ms = _time_ms(lambda: ref.flash_attention_bwd_plain(
+        *ins, block_q=512, block_k=1024, prefix_len=prefix), plain_reps)
     q, k, v, _, _, _, do = ins
     qg, kg, vg = (t.detach().clone().contiguous().requires_grad_(True) for t in (q, k, v))
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    mask = ((cols <= rows) | (cols < prefix)) if prefix else None
 
-    def library_fwd():
+    def library_fwd(masked):
+        if masked:
+            return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, enable_gqa=True)
         return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
-
-    def library_both():
-        return torch.autograd.grad(library_fwd(), (qg, kg, vg), do)
 
     # with this run's deterministic algorithms and without them; the
     # library may refuse its backward under determinism
     library = {}
-    for det in (True, False):
-        torch.use_deterministic_algorithms(det)
-        try:
-            library_both()  # warm-up: its first calls pick a backend, with
-            with torch.no_grad():  # and without a gradient
-                library_fwd()
-                fwd_ms = _time_ms(library_fwd, 10)
-            library[det] = _time_ms(library_both, 10) - fwd_ms
-        except RuntimeError as exc:  # refused: printed, not timed
-            library[det] = f"refused ({str(exc).splitlines()[0][:120]})"
+    for masked in (False, True) if prefix else (False,):
+        for det in (True, False):
+            torch.use_deterministic_algorithms(det)
+            try:
+                torch.autograd.grad(library_fwd(masked), (qg, kg, vg), do)  # warm-up: its
+                with torch.no_grad():  # first calls pick a backend, with and without a
+                    library_fwd(masked)  # gradient
+                    fwd_ms = _time_ms(lambda: library_fwd(masked), 10)
+                library[masked, det] = _time_ms(lambda: torch.autograd.grad(
+                    library_fwd(masked), (qg, kg, vg), do), 10) - fwd_ms
+            except RuntimeError as exc:  # refused: printed, not timed
+                library[masked, det] = f"refused ({str(exc).splitlines()[0][:120]})"
     torch.use_deterministic_algorithms(True)
-    timed = [x for x in library.values() if isinstance(x, float)]
+    # the same function: with a prefix the masked call, else is_causal
+    timed = [x for (masked, _), x in library.items()
+             if isinstance(x, float) and masked == bool(prefix)]
     library_ms = min(timed) if timed else None
-    del ins, q, k, v, do, qg, kg, vg
+    del ins, q, k, v, do, qg, kg, vg, mask
     torch.cuda.empty_cache()
     nbytes = (4 * B * Hq * S * D * 2 + 4 * B * Hkv * S * D * 2  # q, o, dO, dq; k, v, dk, dv
               + 2 * B * Hq * S * 4)                             # m, l
-    flops = 10 * B * Hq * D * S * (S + 1) / 2  # 5 products over causal pairs
+    flops = 10 * B * Hq * D * _causal_pairs(S, prefix)  # 5 products over unmasked pairs
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_TC_OPS_PER_S * 1e3
-    row = {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "none: the reference differentiates src/repro/models/layers.py:136 "
-                    "(_chunked_attention) in plain JAX; no Pallas backward",
-        "launches": train_long_launches, "kernels_per_launch": int(per_call),  # checked below
-        "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-    }
-    lib = " ".join(f"{'deterministic' if d else 'not'}="
+    out = {"q": (B, Hq, S, D), "prefix": prefix, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms, "max_abs_err": err, "kernels_per_launch": int(per_call),
+           "split_ms": split, "scratch_bytes": scratch,
+           "library": {f"{'masked' if masked else 'is_causal'}_"
+                       f"{'deterministic' if det else 'not'}": x
+                       for (masked, det), x in library.items()}}
+    lib = " ".join(f"{'masked' if masked else 'is_causal'}/"
+                   f"{'deterministic' if d else 'not'}="
                    f"{x if isinstance(x, str) else format(x, '.4f')}"
-                   for d, x in library.items())
-    factor = " ".join(f"{'deterministic' if d else 'not'}={ms / x:.3f}"
-                      for d, x in library.items() if isinstance(x, float))
+                   for (masked, d), x in library.items())
+    factor = " ".join(f"{'masked' if masked else 'is_causal'}/"
+                      f"{'deterministic' if d else 'not'}={ms / x:.3f}"
+                      for (masked, d), x in library.items() if isinstance(x, float))
     print(f"[timing] flash-bwd q={(B, Hq, S, D)} k=v={(B, Hkv, S, D)} bf16 causal "
-          f"kernel_ms={ms:.4f} (profiler: {per_call:g} kernels a call, per kernel "
-          f"{' '.join(f'{k}={v:.4f}' for k, v in split.items()) or 'none traced'}; "
+          f"prefix_len={prefix} kernel_ms={ms:.4f} (profiler: {per_call:g} kernels a call, "
+          f"per kernel {' '.join(f'{k}={v:.4f}' for k, v in split.items()) or 'none traced'}; "
           f"scratch_bytes={scratch}) plain_ms={plain_ms:.1f} "
           f"library_ms={library_ms if library_ms is None else format(library_ms, '.4f')} "
-          f"({lib}; kernel/library {factor}) bound_ms={row['bound_ms']:.4f} "
-          f"bound/kernel={row['bound_ms'] / ms:.3f} "
+          f"({lib}; kernel/library {factor}) bound_ms={out['bound_ms']:.4f} "
+          f"({out['bound_by']}: {flops:.4g} flop, {nbytes} bytes) "
+          f"bound/kernel={out['bound_ms'] / ms:.3f} "
           f"TFLOP/s={flops / ms / 1e9:.1f} max_abs_err={err:.3g} ({ratio:.3g}x the bf16 "
           f"limit)", flush=True)
     if not ratio <= 1:
-        raise SystemExit(f"flash_attention_bwd disagrees with plain at the train shape: {err}")
+        raise SystemExit(f"flash_attention_bwd disagrees with plain at {out['q']}: {err}")
     if (per_call != len(BWD_KERNELS) or len(traced) != len(BWD_KERNELS)
             or len(split) != len(BWD_KERNELS) or not all(t > 0 for t in split.values())):
         raise SystemExit(f"the profiler did not trace each of {list(BWD_KERNELS.values())} "
                          f"once a call, with its device time: {per_call:g} a call, "
                          f"{[e.key[:80] for e in traced]}")
+    return out
+
+
+def phase_flash_bwd_timing(train_long_launches: int) -> dict:
+    """The backward kernel at one layer of [train:long]'s shape: q (2, 14,
+    8192, 64), k = v (2, 2, 8192, 64), the JSON row, and at one layer of
+    paligemma-3b's at batch 2: q (2, 8, 8192, 256), k = v (2, 1, 8192, 256),
+    the image's 256 patches a prefix, the row's ``hd256p``
+    (:func:`_flash_bwd_timed`)."""
+    t = _flash_bwd_timed(LONG_BATCH, 14, 2, LONG_SEQ, 64, 0, plain_reps=2)
+    vlm = _flash_bwd_timed(2, 8, 1, LONG_SEQ, 256, MM_PATCHES, plain_reps=1)
+    row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "none: the reference differentiates src/repro/models/layers.py:136 "
+                    "(_chunked_attention) in plain JAX; no Pallas backward",
+        "launches": train_long_launches, "kernels_per_launch": t["kernels_per_launch"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "hd256p": {k: vlm[k] for k in ("q", "prefix", "ms", "split_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "library", "max_abs_err")},
+    }
     return row
 
 
@@ -3460,6 +3557,155 @@ def phase_multimodal(card: str) -> dict:
                          "flash_attention_bwd": counts["flash_attention_bwd"]}}
 
 
+# [multimodal:long]: paligemma-3b at full width, MM_LAYERS of its 18, trained
+# by the train CLI at batch 1 over MM_PATCHES patches + MM_LONG_TEXT text
+# tokens (8,192 positions: the chunked lowering, the flash kernels at head
+# dim 256 with the image a prefix), MM_LONG_STEPS steps, one checkpoint at
+# MM_LONG_CKPT
+MM_LONG_TEXT, MM_LONG_STEPS, MM_LONG_CKPT = LONG_SEQ - MM_PATCHES, 4, 2
+
+
+def phase_multimodal_long(card: str) -> dict:
+    """paligemma-3b trained at 8,192 positions on the card
+    (``[multimodal:long]``): full width, 2 of its 18 layers (as
+    ``[multimodal]`` cuts it), the train CLI at batch 1, 256 patches +
+    7,936 text tokens, ``remat="dots"``, 4 steps, one fork checkpoint at
+    step 2, codec none. Every layer's attention is the flash forward at
+    head dim 256 with ``prefix_len`` 256 and its gradient the backward
+    kernel: per step exactly 2 x 2 forward launches (remat recomputes each
+    layer's attention in the backward) and 2 backward calls, all on the
+    tensor-core routes, no digest launch, all of them counted for the
+    step's thread too; every step's loss and gradient norm finite (a
+    non-finite gradient leaf makes the norm so); per step its ms and peak
+    GB. The step-2 image restored and run to step 4 must equal the run's
+    step-4 state bit for bit."""
+    import dataclasses
+
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.configs import get_config
+    from repro_torch.core import CheckpointPolicy, RestoreManager
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.launch.train import build_training
+    from repro_torch.runtime.steps import batch_to_device
+    from repro_torch.utils.tree import tree_equal
+
+    cfg = dataclasses.replace(get_config(MM_ARCH), num_layers=MM_LAYERS)
+    if cfg.num_patches + MM_LONG_TEXT < cfg.attn_chunked_threshold:
+        raise SystemExit(f"[multimodal:long] {cfg.num_patches + MM_LONG_TEXT} positions take "
+                         f"the dense lowering")
+    L = cfg.num_layers
+    want_step = {"flash_attention": 2 * L, "flash_attention_bwd": L, "chunk_digest": 0,
+                 "thread": (2 * L, L), "routes": (2 * L, L)}
+    steps = []
+    make, cli_config, cli_policy = train.make_train_step, train.get_config, train.CheckpointPolicy
+
+    def counting_make(model, optimizer, **kw):
+        fn = make(model, optimizer, **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            c0 = _counts()
+            t_fwd, t_bwd = flash_attention.thread_launches(), flash_attention.thread_bwd_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            c1 = _counts()
+            steps.append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "loss": float(out[1]["loss"]), "grad_norm": float(out[1]["grad_norm"]),
+                **{key: c1[key] - c0[key] for key in
+                   ("flash_attention", "flash_attention_bwd", "chunk_digest")},
+                "thread": (flash_attention.thread_launches() - t_fwd,
+                           flash_attention.thread_bwd_launches() - t_bwd),
+                "routes": (c1["flash_attention_by_route"]["wgmma"]
+                           - c0["flash_attention_by_route"]["wgmma"],
+                           c1["flash_attention_bwd_by_route"]["mma"]
+                           - c0["flash_attention_bwd_by_route"]["mma"])})
+            return out
+
+        return step
+
+    class AtStep(CheckpointPolicy):  # the CLI's policy, one checkpoint only
+        def should_checkpoint(self, step: int) -> bool:
+            return step == MM_LONG_CKPT or self._preempt
+
+    argv = ["--arch", MM_ARCH, "--steps", str(MM_LONG_STEPS), "--batch", "1",
+            "--seq", str(MM_LONG_TEXT), "--lr", str(LR), "--ckpt-every", str(MM_LONG_CKPT),
+            "--backend", "fork", "--codec", "none", "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-multimodal-long-") as tmp:
+        store = os.path.join(tmp, "ckpt")
+        train.make_train_step, train.CheckpointPolicy = counting_make, AtStep
+        train.get_config = lambda name, smoke=False: cfg  # the CLI at 2 of 18 layers
+        try:
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = train.train(argv + ["--ckpt-dir", store])
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        finally:
+            train.make_train_step, train.get_config = make, cli_config
+            train.CheckpointPolicy = cli_policy
+        for i, st in enumerate(steps, 1):
+            print(f"[multimodal:long] {card} step={i} step_ms={st['ms']:.1f} "
+                  f"peak_gb={st['peak_gb']:.2f} loss={st['loss']:.4f} "
+                  f"grad_norm={st['grad_norm']:.4f} flash_fwd={st['flash_attention']} "
+                  f"flash_bwd_calls={st['flash_attention_bwd']} digest={st['chunk_digest']} "
+                  f"(wgmma, mma)={st['routes']} this_thread(fwd, bwd)={st['thread']}",
+                  flush=True)
+        for r in out["results"]:
+            print(f"[multimodal:long] ckpt step={r.step} blocking_ms={r.blocking_s * 1e3:.1f} "
+                  f"persist_ms={r.persist_s * 1e3:.1f} {_fetch_split(r)} "
+                  f"synced={r.chunks_synced} written={r.chunks_written}", flush=True)
+        warm = [st["ms"] for st in steps[1:]]
+        print(f"[multimodal:long] arch={MM_ARCH} layers={L} of 18 heads={cfg.num_heads}/"
+              f"{cfg.num_kv_heads}x{cfg.head_dim} batch=1 positions={cfg.num_patches} patches "
+              f"+ {MM_LONG_TEXT} text remat={cfg.remat} steps={out['final_step']} "
+              f"wall_s={wall:.1f} warm_step_ms={min(warm):.1f} (steps 2..{MM_LONG_STEPS}: "
+              f"{' '.join(f'{x:.1f}' for x in warm)}) peak_gb="
+              f"{max(st['peak_gb'] for st in steps):.2f} launches="
+              f"{ {k: counts[k] for k in ('flash_attention', 'flash_attention_bwd', 'chunk_digest')} }",
+              flush=True)
+        finite = all(math.isfinite(st[k]) for st in steps for k in ("loss", "grad_norm"))
+        if out["final_step"] != MM_LONG_STEPS or not finite:
+            raise SystemExit(f"[multimodal:long] did not train cleanly: {out['final_step']} "
+                             f"{steps}")
+        if [r.step for r in out["results"]] != [MM_LONG_CKPT]:
+            raise SystemExit(f"[multimodal:long] images: {[r.step for r in out['results']]}")
+        bad = [st for st in steps if {k: st[k] for k in want_step} != want_step]
+        if len(steps) != MM_LONG_STEPS or bad:
+            raise SystemExit(f"[multimodal:long] launches per step, want {want_step} on the "
+                             f"tensor-core routes: {bad or len(steps)}")
+        run = build_training(cfg, batch=1, seq=MM_LONG_TEXT, lr=LR, total_steps=MM_LONG_STEPS,
+                             device=out["state"]["device"]["step"].device)
+        t_restore = time.perf_counter()
+        state, _ = RestoreManager(ChunkStore(store)).restore(step=MM_LONG_CKPT,
+                                                             device_for=run.device_for)
+        t_restore = time.perf_counter() - t_restore
+        data = SyntheticBatches.from_state(cfg, batch=1, seq_len=MM_LONG_TEXT,
+                                           state=state["host"]["data"])
+        for step in range(MM_LONG_CKPT + 1, MM_LONG_STEPS + 1):
+            state["device"], _ = run.step_fn(state["device"],
+                                             batch_to_device(next(data), run.device))
+            state["host"]["step"] = np.int64(step)
+            state["host"]["data"] = data.state()
+        torch.cuda.synchronize()
+        same = tree_equal(state, out["state"])
+        print(f"[multimodal:long] restored step {MM_LONG_CKPT} in {t_restore:.1f} s, ran "
+              f"{MM_LONG_CKPT + 1}..{MM_LONG_STEPS}: bitwise_equal to the run's "
+              f"step-{MM_LONG_STEPS} state={same}", flush=True)
+        if not same:
+            raise SystemExit("[multimodal:long] the restart diverged from the straight run")
+        del state, out, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: counts[k] for k in
+                         ("chunk_digest", "flash_attention", "flash_attention_bwd")}}
+
+
 # [cluster] and [cluster:proxy] train 2 of the train program's 24 layers
 # (full width), cuts for the script's time (PERF.md §4)
 CLUSTER_SPEC = dict(UVM_SPEC, num_layers=2)
@@ -3998,8 +4244,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()  # the card's memory for both lanes
         # [proxy] and the cluster phases run in a second process of this
-        # script (its output printed when it ends), [serve:proxy] and [uvm]
-        # here: the kernels' times above ran with the card to themselves
+        # script (its output printed when it ends), [serve:proxy], [uvm],
+        # [moe] and [multimodal:long] here: the kernels' times above ran
+        # with the card to themselves
         lane_out, lane_log = os.path.join(tmp, "lane.json"), os.path.join(tmp, "lane.log")
         with open(lane_log, "w") as log:
             lane = subprocess.Popen(
@@ -4015,6 +4262,10 @@ def main() -> int:
             del unmanaged6
             with _clock("moe"):
                 moed = phase_moe(card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            with _clock("multimodal:long"):
+                mm_long = phase_multimodal_long(card)
             laned = _lane_result(lane, lane_log, lane_out, t_script)
         finally:
             _stop_lane(lane)
@@ -4035,6 +4286,7 @@ def main() -> int:
         row["launches_cluster_proxy"] = laned["cluster_proxy"].get(row["name"])
         row["launches_cluster_remote"] = laned["cluster_remote"].get(row["name"])
         row["launches_moe"] = moed["launches"][row["name"]]
+        row["launches_multimodal_long"] = mm_long["launches"][row["name"]]
         row["launches_hybrid"] = laned["hybrid"][row["name"]]
         row["launches_multimodal"] = laned["multimodal"][row["name"]]
     print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)

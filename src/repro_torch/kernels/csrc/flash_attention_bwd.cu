@@ -12,10 +12,12 @@
 // output o and row statistics m, l (B, Hq, Sq) (m: the row max of the scaled,
 // masked logits in the natural-log domain; l: the softmax denominator after
 // the forward's l == 0 -> 1), and the output's gradient dO; kv head of query
-// head h is h / (Hq / Hkv):
+// head h is h / (Hq / Hkv); head dims 32, 64, 128 and 256, the forward's:
 //
 //     Delta = rowsum(dO * O)                                (f32)
 //     s     = (q . k) * scale; masked where causal and col > row + Sk - Sq
+//             and col >= prefix_len (prefix_len > 0 opens the first keys to
+//             every row: the prefix-LM mask of _chunked_attention)
 //     P     = exp(s - m) / l, a masked logit counting as -1e30
 //     dP    = dO . v
 //     dS    = P * (dP - Delta), 0 at masked positions
@@ -23,18 +25,20 @@
 //             q heads);  dv = P^T . dO (summed likewise)
 //
 // A masked logit is -1e30, so exp(-1e30 - m) is 0 for a row that has a key
-// and 1 for a row with no valid key (Sq > Sk, row < Sq - Sk: m = -1e30). m
-// and l are kept apart for that reason: in f32 -1e30 + log(Sk) rounds back
-// to -1e30, so P = exp(s - lse) would be 1 at every key of such a row, not
-// 1 / Sk. Such a row spreads dO over every key of dv, and its dS is 0
-// everywhere (the plain version's torch.where passes no gradient to a masked
-// logit), so its dq is 0.
+// and 1 for a row with no valid key (Sq > Sk, row < Sq - Sk, no prefix: m =
+// -1e30). m and l are kept apart for that reason: in f32 -1e30 + log(Sk)
+// rounds back to -1e30, so P = exp(s - lse) would be 1 at every key of such
+// a row, not 1 / Sk. Such a row spreads dO over every key of dv, and its dS
+// is 0 everywhere (the plain version's torch.where passes no gradient to a
+// masked logit), so its dq is 0. With prefix_len >= 1 every row sees key 0,
+// so no row lacks a key and those branches are never taken.
 //
 // What bounds it: operations. Five products of the forward's size (q k^T, dO
 // v^T, dS k, dS^T q, P^T dO) at the training shape (q (2, 14, 8192, 64), k, v
 // (2, 2, 8192, 64), bf16, causal): 6.0e11 flop, 0.61 ms at the tensor cores'
 // 989 TFLOP/s dense bf16 rate; its 136 MB of inputs and outputs take 0.041
-// ms at 3.35 TB/s.
+// ms at 3.35 TB/s. At paligemma's training shape (q (2, 8, 8192, 256), k, v
+// (2, 1, 8192, 256), prefix 256): 1.38e12 flop, 1.39 ms.
 //
 // Design: no float is ever added atomically, and every sum runs in a fixed
 // order, so the result is the same bits from run to run (training restarts
@@ -46,17 +50,19 @@
 //      dimension, so every head's long causal rows start before any short
 //      ones). It computes Delta, m in the log2 domain and 1 / l for its
 //      rows into a (3, B, Hq, Sq rounded up to 4) f32 scratch that kernel 2
-//      reads, then walks the 64-key tiles that its rows may see, recomputes
-//      s, P and dP, and accumulates dq over them in order.
+//      reads, then walks the key tiles that its rows may see (64 keys; 32
+//      at D = 256), recomputes s, P and dP, and accumulates dq over them in
+//      order.
 //   2. flash_bwd_dkdv_tc: one CTA (one warpgroup) per (q head, batch,
-//      64-key tile), the key tiles that the most rows weigh first. It walks
-//      the q tiles that weigh its keys (causally admitted rows, and the rows
-//      with no key, which weigh every key) in order, recomputes s^T, P^T and
-//      dP^T, and accumulates this head's dk and dv; it writes them unscaled
-//      as f32 partials to a (B, Hq, Sk, D) scratch each. One CTA per q head,
-//      not per kv head, so no CTA walks the whole group: at the training
-//      shape the heaviest walks 128 q tiles where one CTA per kv
-//      head walked 896.
+//      64-key tile, column half at D = 256), the key tiles that the most
+//      rows weigh first. It walks the q tiles that weigh its keys (causally
+//      admitted rows, every row for a key tile that starts inside the
+//      prefix, and the rows with no key, which weigh every key) in order,
+//      recomputes s^T, P^T and dP^T, and accumulates this head's dk and dv;
+//      it writes them unscaled as f32 partials to a (B, Hq, Sk, D) scratch
+//      each. One CTA per q head, not per kv head, so no CTA walks the whole
+//      group: at the training shape the heaviest walks 128 q tiles where
+//      one CTA per kv head walked 896.
 //   3. flash_bwd_reduce_dkdv: for each kv head, sums the group's partials
 //      in head order (hk * group, ..., hk * group + group - 1), scales dk,
 //      and rounds each once to the input type (reads 2 x 58.7 MB, writes
@@ -67,30 +73,45 @@
 //   accumulator fragment of one product is the A fragment of the next,
 //   rounded once to the input type) and k, dO or q from shared memory in
 //   the descriptor's transpose mode, so no operand is copied transposed.
-//   Kernel 2's q tiles hold 64 rows (32 at D = 128, for registers).
+//   Kernel 2's q tiles hold 64 rows (32 at D >= 128, for registers).
+//   Head dim 256: dq (64 x 256 f32) alone is 128 registers a thread, so
+//   kernel 1's key tiles hold 32 keys (s and dP 16 registers each) and dS k
+//   is two m64n128k16 a k16 step, one per half of dq, the second B
+//   descriptor two 64-column panels on (the forward's P V at D = 256).
+//   dk and dv of 64 keys x 256 would be 256 registers a thread: kernel 2
+//   splits D's columns between two CTAs of one warpgroup each, and each
+//   computes s^T and dP^T over the whole D itself (two of kernel 2's four
+//   products done twice; no exchange through shared memory, no second
+//   warpgroup to synchronise), then its half's dk and dv (64 + 64
+//   registers, D = 128's register picture). Chosen for being the least
+//   change to a kernel that is right: the other splits (two warpgroups
+//   sharing s and dP through shared memory, dk and dv in different
+//   warpgroups) save tensor-core work and are later work.
 //   Loads: cp.async, 16 bytes a thread, into the 128-byte swizzle wgmma
 //   reads (64-byte at D = 32), in a ring of three stages: while a tile is
 //   computed the next two are in flight (kernel 1: k and v of the next key
 //   tiles; kernel 2: q, dO and the rows' statistics of the next admitted q
 //   tiles), and one __syncthreads a tile both publishes a tile and frees
-//   the stage refilled next. Rows past Sq or Sk arrive as zeros.
+//   the stage refilled next. Rows past Sq or Sk arrive as zeros. At D = 256
+//   the halved tiles keep three stages within 166 KB of shared memory.
 //   Latency: a warpgroup runs its tile's products, waits, then its softmax
 //   gradient, so three CTAs share an SM (registers capped at 170 a thread;
-//   D = 128: one CTA of kernel 1, two of kernel 2) and one's products run
-//   beside another's softmax. Inside the causal triangle (every row in the
-//   tensor and seeing every key) the softmax gradient is a loop of its own
-//   without a test or a branch; on the diagonal and at ragged edges each
-//   pair is tested. exp is ex2 of the logit in the log2 domain, as in the
-//   forward.
+//   D = 128: one CTA of kernel 1, two of kernel 2; D = 256: one of each, by
+//   shared memory) and one's products run beside another's softmax. Inside
+//   the causal triangle (every row in the tensor and seeing every key,
+//   causally or as a prefix key) the softmax gradient is a loop of its own
+//   without a test or a branch; on the diagonal, at the prefix's edge and
+//   at ragged edges each pair is tested. exp is ex2 of the logit in the
+//   log2 domain, as in the forward.
 //   Kernel 1 recomputes s and dP that kernel 2 computes too, so the design
-//   does 7 products where 5 would do: its own floor is 0.85 ms at the
-//   training shape.
+//   does 7 products where 5 would do (9 at D = 256): its own floor is 0.85
+//   ms at the training shape and 2.5 ms at paligemma's.
 //
 // f32 (flash_bwd_*_simt): two kernels on the CUDA cores (mma has no f32
 // inputs; TF32 would not meet the f32 limit), 256 threads, 32-row and 32-key
 // tiles in shared memory, P and dS through shared memory, expf. dq and Delta
 // per q tile, then dk and dv per (key tile, kv head), the group's heads
-// summed in a loop.
+// summed in a loop. D = 256 takes 137 KB of shared memory.
 //
 // Strides: q, k, v, o and dO are read through their (b, h, s) element
 // strides with unit stride in D (the model's transposed v view needs no
@@ -131,6 +152,7 @@ struct Params {
   int batch, hq, hkv, sq, sk, d, group, sq_pad;
   float scale;
   int causal;
+  int prefix_len;  // keys every row may see (the prefix-LM mask); 0: none
 };
 
 template <typename T>
@@ -143,7 +165,7 @@ template <>
 __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
 
 // Where a (row, key) pair stands: outside the tensors (weight 0, no
-// gradient), masked by causality, or a plain logit.
+// gradient), masked (causally, and not a prefix key), or a plain logit.
 struct Pair {
   bool valid;
   bool masked;
@@ -151,29 +173,32 @@ struct Pair {
 
 __device__ __forceinline__ Pair pair_at(const Params& p, int row, int key) {
   const bool valid = row < p.sq && key < p.sk;
-  return {valid, valid && p.causal && key > row + p.sk - p.sq};
+  return {valid, valid && p.causal && key > row + p.sk - p.sq && key >= p.prefix_len};
 }
 
 // Causal: the number of key tiles of `bk` keys that rows [q0, last_row]
-// may see (kernel 1: a row with no key needs none).
+// may see, up to the tile holding max(last_row + Sk - Sq, prefix_len - 1)
+// (kernel 1: a row with no key needs none).
 __device__ __forceinline__ int key_tiles(const Params& p, int last_row, int bk) {
   const int all = (p.sk + bk - 1) / bk;
   if (!p.causal) {
     return all;
   }
-  const int last_key = last_row + p.sk - p.sq;
+  const int last_key = max(last_row + p.sk - p.sq, p.prefix_len - 1);
   return last_key < 0 ? 0 : min(all, last_key / bk + 1);
 }
 
 // Causal: whether q tile [q0, q0 + bq) holds a row that weighs a key of
-// [k0, ...): a row that sees k0, or a row with no key (it weighs every key).
+// [k0, ...): a row that sees k0, every row where k0 is a prefix key, or a
+// row with no key (it weighs every key; none with a prefix).
 __device__ __forceinline__ bool q_tile_weighs(const Params& p, int q0, int bq, int k0) {
   if (!p.causal) {
     return true;
   }
   const int offset = p.sk - p.sq;
   const int last_row = min(q0 + bq, p.sq) - 1;
-  return last_row + offset >= k0 || q0 + offset < 0;
+  return last_row + offset >= k0 || k0 < p.prefix_len ||
+         (p.prefix_len == 0 && q0 + offset < 0);
 }
 
 // The first q tile of `bq` rows from tile `iq` on that weighs a key of
@@ -192,9 +217,12 @@ __device__ __forceinline__ int next_q_tile(const Params& p, int iq, int nq, int 
 constexpr int kMmaThreads = 128;  // one warpgroup
 constexpr int kTile = 64;         // rows of a kernel-1 CTA, keys of a kernel-2 CTA
 constexpr int kStages = 3;        // cp.async ring: the tile in use and the next two in flight
-constexpr int kDqBk = 64;         // keys per tile of kernel 1
 template <int D>
-constexpr int kDkdvBq = D == 128 ? 32 : 64;  // q rows per tile of kernel 2 (registers)
+constexpr int kDqBk = D == 256 ? 32 : 64;  // keys per tile of kernel 1 (registers)
+template <int D>
+constexpr int kDkdvBq = D >= 128 ? 32 : 64;  // q rows per tile of kernel 2 (registers)
+template <int D>
+constexpr int kDkdvN = D == 256 ? 128 : D;  // dk and dv columns per kernel-2 CTA
 constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -489,6 +517,26 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&a
   }
 }
 
+// C (64 x N) += A (64 x 16, registers) . B, B the N columns from column c0
+// of rows 16 kk..16 kk + 15 of a tile of `rows` rows (the transpose mode).
+// N = 256 is two m64n128k16, one per half of the accumulator: registers
+// 0-63 hold columns 0-127 and 64-127 columns 128-255 (an n = 256
+// fragment's j-th group of 8 columns is registers 4j..4j+3), the second
+// half of B two 64-column panels on.
+template <typename T, int D, int N>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint32_t tile, int rows, int c0, int kk) {
+  using S = Swz<D>;
+  const uint32_t at = tile + (c0 / S::kPanel) * rows * S::kRowBytes;
+  if constexpr (N == 256) {
+    wgmma_rs<T, 128>(*reinterpret_cast<float(*)[64]>(&d[0]), a, desc_t<D>(at, rows, kk));
+    wgmma_rs<T, 128>(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                     desc_t<D>(at + 2 * rows * S::kRowBytes, rows, kk));
+  } else {
+    wgmma_rs<T, N>(d, a, desc_t<D>(at, rows, kk));
+  }
+}
+
 // Rows [row0, row0 + kRows) of a (s, d) operand with row stride `ss` into a
 // swizzled shared tile at `dst`, asynchronously; rows at or past `n` as
 // zeros (the wrapper checks that 16-byte copies can read the rows).
@@ -529,17 +577,17 @@ template <int D>
 constexpr size_t dq_tc_smem() {
   // q and dO (kTile rows), k and v (kDqBk rows, kStages each), 3 x kTile
   // statistics, and the room to align the tiles to 1024 bytes
-  return 1024 + static_cast<size_t>(2 * kTile + 2 * kStages * kDqBk) * D * 2 +
+  return 1024 + static_cast<size_t>(2 * kTile + 2 * kStages * kDqBk<D>) * D * 2 +
          3 * sizeof(float) * kTile;
 }
 
 // Kernel 1, tensor cores: Delta, the rows' statistics and dq of one 64-row
-// q tile. Three CTAs share an SM at D = 32 and 64, one at D = 128.
+// q tile. Three CTAs share an SM at D = 32 and 64, one at D = 128 and 256.
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads, D == 128 ? 1 : 3) flash_bwd_dq_tc(const Params p) {
+__global__ void __launch_bounds__(kMmaThreads, D >= 128 ? 1 : 3) flash_bwd_dq_tc(const Params p) {
   using S = Swz<D>;
   constexpr int kBq = kTile;
-  constexpr int kBk = kDqBk;
+  constexpr int kBk = kDqBk<D>;
   constexpr uint32_t kQBytes = kBq * D * 2;
   constexpr uint32_t kKBytes = kBk * D * 2;
   extern __shared__ uint8_t smem_dq[];
@@ -695,7 +743,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 128 ? 1 : 3) flash_bwd_dq_tc
       const float pv = ex2(fmaf(s[e], scale_log2, -m_log2[i])) * inv_l[i];
       return pv * (dp[e] - dl[i]);
     };
-    if (w0 + 15 < p.sq && k0 + kBk <= p.sk && (!p.causal || k0 + kBk - 1 <= w0 + offset)) {
+    if (w0 + 15 < p.sq && k0 + kBk <= p.sk &&
+        (!p.causal || k0 + kBk - 1 <= w0 + offset || k0 + kBk <= p.prefix_len)) {
 #pragma unroll
       for (int e = 0; e < kBk / 2; ++e) s[e] = ds_of(e, (e / 2) % 2);
     } else {
@@ -715,7 +764,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 128 ? 1 : 3) flash_bwd_dq_tc
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBk / 16; ++kk) {
-      wgmma_rs<T, D>(dq, a[kk], desc_t<D>(kt, kBk, kk));
+      wgmma_rs_t<T, D, D>(dq, a[kk], kt, kBk, 0, kk);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -742,16 +791,19 @@ template <int D>
 constexpr size_t dkdv_tc_smem() {
   // k and v (kTile rows), q and dO (kDkdvBq rows, kStages each), kStages x
   // 3 x kDkdvBq statistics, and the room to align the tiles to 1024 bytes
+  // (the whole D: s^T and dP^T contract over it)
   return 1024 + static_cast<size_t>(2 * kTile + 2 * kStages * kDkdvBq<D>) * D * 2 +
          kStages * 3 * sizeof(float) * kDkdvBq<D>;
 }
 
 // Kernel 2, tensor cores: one q head's dk and dv partials of one 64-key
-// tile. Three CTAs share an SM at D = 32 and 64, two at D = 128.
+// tile (at D = 256, of one half of its columns). Three CTAs share an SM at
+// D = 32 and 64, two at D = 128, one at D = 256 (shared memory).
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3) flash_bwd_dkdv_tc(const Params p) {
+__global__ void __launch_bounds__(kMmaThreads, D >= 128 ? 2 : 3) flash_bwd_dkdv_tc(const Params p) {
   constexpr int kBk = kTile;
   constexpr int kBq = kDkdvBq<D>;
+  constexpr int kN = kDkdvN<D>;  // this CTA's columns of dk and dv
   constexpr uint32_t kKBytes = kBk * D * 2;
   constexpr uint32_t kQBytes = kBq * D * 2;
   extern __shared__ uint8_t smem_dkdv[];
@@ -769,7 +821,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3) flash_bwd_dkdv_
   const int col0 = 2 * (lane % 4);
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int k0 = static_cast<int>(blockIdx.z) * kBk;  // the most q rows first
+  const int k0 = static_cast<int>(blockIdx.z) / (D / kN) * kBk;  // the most q rows first
+  const int c0 = static_cast<int>(blockIdx.z) % (D / kN) * kN;    // first column
   const int hk = h / p.group;
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -803,12 +856,12 @@ __global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3) flash_bwd_dkdv_
   const int kw = k0 + 16 * warp;      // the warp's first key
   const int key0 = kw + lane / 4;     // this thread's keys: key0, key0 + 8
 
-  float dk[D / 2];
-  float dv[D / 2];
+  float dk[kN / 2];
+  float dv[kN / 2];
   float st[kBq / 2];   // s^T, then P^T
   float dpt[kBq / 2];  // dP^T, then dS^T
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
+  for (int i = 0; i < kN / 2; ++i) {
     dk[i] = 0.f;
     dv[i] = 0.f;
   }
@@ -854,9 +907,10 @@ __global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3) flash_bwd_dkdv_
 
     // element 4 j + 2 i + c: key key0 + 8 i, row q0 + 8 j + col0 + c.
     // Inside (every row of the tile in the tensor and seeing every key of
-    // the warp) no pair needs a test: a loop of its own, without branches.
+    // the warp, causally or as prefix keys) no pair needs a test: a loop of
+    // its own, without branches.
     const bool inside = q0 + kBq <= p.sq && kw + 16 <= p.sk &&
-                        (!p.causal || kw + 15 <= q0 + p.sk - p.sq);
+                        (!p.causal || kw + 15 <= q0 + p.sk - p.sq || kw + 16 <= p.prefix_len);
 #pragma unroll
     for (int j = 0; j < kBq / 8; ++j) {
       const int r = 8 * j + col0;
@@ -881,7 +935,9 @@ __global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3) flash_bwd_dkdv_
           const float pv = ex2(fmaf(st[e], scale_log2, -mr[c])) * ilr[c];
           const float ds = pv * (dpt[e] - dlr[c]);
           // a masked pair: exp(-1e30 - m) / l, 1 / l on a row with no key
-          st[e] = !pr.valid ? 0.f : pr.masked ? (mr[c] == kMasked ? ilr[c] : 0.f) : pv;
+          // (none with a prefix)
+          const bool no_key = p.prefix_len == 0 && mr[c] == kMasked;
+          st[e] = !pr.valid ? 0.f : pr.masked ? (no_key ? ilr[c] : 0.f) : pv;
           dpt[e] = pr.valid && !pr.masked ? ds : 0.f;
         }
       }
@@ -899,8 +955,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3) flash_bwd_dkdv_
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBq / 16; ++kk) {
-      wgmma_rs<T, D>(dv, ap[kk], desc_t<D>(dot, kBq, kk));
-      wgmma_rs<T, D>(dk, ads[kk], desc_t<D>(qt, kBq, kk));
+      wgmma_rs_t<T, D, kN>(dv, ap[kk], dot, kBq, c0, kk);
+      wgmma_rs_t<T, D, kN>(dk, ads[kk], qt, kBq, c0, kk);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -918,8 +974,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 128 ? 2 : 3) flash_bwd_dkdv_
     const int key = key0 + 8 * i;
     if (key >= p.sk) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int64_t at = base + static_cast<int64_t>(key) * D + 8 * j + col0;
+    for (int j = 0; j < kN / 8; ++j) {
+      const int64_t at = base + static_cast<int64_t>(key) * D + c0 + 8 * j + col0;
       *reinterpret_cast<float2*>(p.dk_part + at) =
           make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
       *reinterpret_cast<float2*>(p.dv_part + at) =
@@ -1222,7 +1278,7 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Params& 
 template <typename T, int D>
 cudaError_t launch_tc(const Params& p, int b, cudaStream_t stream) {
   const int64_t nq = (p.sq + kTile - 1) / kTile;
-  const int64_t nk = (p.sk + kTile - 1) / kTile;
+  const int64_t nk = (p.sk + kTile - 1) / kTile * (D / kDkdvN<D>);  // kernel 2's CTAs a head
   const int64_t blocks =
       (static_cast<int64_t>(b) * p.hkv * p.sk * D / 4 + kReduceThreads - 1) / kReduceThreads;
   if (p.dk_part == nullptr || p.dv_part == nullptr || nq > 65535 || nk > 65535 ||
@@ -1268,6 +1324,8 @@ cudaError_t launch_tc_dim(const Params& p, int b, int d, cudaStream_t stream) {
       return launch_tc<T, 64>(p, b, stream);
     case 128:
       return launch_tc<T, 128>(p, b, stream);
+    case 256:
+      return launch_tc<T, 256>(p, b, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1281,6 +1339,8 @@ cudaError_t launch_simt_dim(const Params& p, int b, int d, cudaStream_t stream) 
       return launch_simt<64>(p, b, stream);
     case 128:
       return launch_simt<128>(p, b, stream);
+    case 256:
+      return launch_simt<256>(p, b, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1288,9 +1348,9 @@ cudaError_t launch_simt_dim(const Params& p, int b, int d, cudaStream_t stream) 
 
 // The sizes and flags of one call; false where they are out of range.
 bool shape_params(Params& p, int b, int hq, int hkv, int sq, int sk, int d, float scale,
-                  int causal) {
+                  int causal, int prefix_len) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 || sk <= 0 || b > 65535 ||
-      hq > 65535 || sq > INT_MAX - 3) {
+      hq > 65535 || sq > INT_MAX - 3 || prefix_len < 0) {
     return false;
   }
   p.batch = b;
@@ -1303,6 +1363,7 @@ bool shape_params(Params& p, int b, int hq, int hkv, int sq, int sk, int d, floa
   p.sq_pad = (sq + 3) / 4 * 4;
   p.scale = scale;
   p.causal = causal;
+  p.prefix_len = causal ? prefix_len : 0;  // the mask widens the causal one
   return true;
 }
 
@@ -1316,7 +1377,8 @@ bool shape_params(Params& p, int b, int hq, int hkv, int sq, int sk, int d, floa
 // float32, (3, b, hq, sq rounded up to 4) for the 16-bit types. dk_part,
 // dv_part: (b, hq, sk, d) f32 scratch each for the 16-bit types (unused,
 // may be null, for float32). dq (b, hq, sq, d), dk, dv (b, hkv, sk, d):
-// contiguous outputs of `dtype`. The caller makes the tensors' device
+// contiguous outputs of `dtype`. prefix_len >= 0: keys every row may see
+// (the prefix-LM mask; causal calls only). The caller makes the tensors' device
 // current. The kernels go on `stream` in order (16-bit: dq and the rows'
 // statistics, dk and dv per q head, the sum over each group; float32: dq
 // and Delta, then dk and dv); nothing is synchronised or allocated here.
@@ -1326,12 +1388,12 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                                           void* dv, float* dk_part, float* dv_part,
                                           const int64_t* strides, int b, int hq, int hkv,
                                           int sq, int sk, int d, int dtype, float scale,
-                                          int causal, cudaStream_t stream) {
+                                          int causal, int prefix_len, cudaStream_t stream) {
   Params p;
   if (q == nullptr || k == nullptr || v == nullptr || o == nullptr || dout == nullptr ||
       m == nullptr || l == nullptr || delta == nullptr || dq == nullptr || dk == nullptr ||
       dv == nullptr || strides == nullptr ||
-      !shape_params(p, b, hq, hkv, sq, sk, d, scale, causal)) {
+      !shape_params(p, b, hq, hkv, sq, sk, d, scale, causal, prefix_len)) {
     return cudaErrorInvalidValue;
   }
   p.q = q;

@@ -18,12 +18,12 @@ dim, so the model's transposed v view needs no copy.
 
 The forward stores each row's softmax statistics m and l when asked
 (``stats=True``); :func:`flash_attention_bwd` takes them with the forward's
-output and the output's gradient. Its route is fixed by dtype as well:
-bfloat16 and float16 on the tensor cores (route ``"mma"``: ``wgmma``; three
-launches: dq, dk and dv per q head into f32 partials, the sum over each kv
-head's group), float32 on the CUDA cores (two launches);
-:func:`bwd_launch_plan` holds its checks and :func:`bwd_scratch` its
-scratch.
+output and the output's gradient, at every head dim and ``prefix_len``
+the forward takes. Its route is fixed by dtype as well: bfloat16 and
+float16 on the tensor cores (route ``"mma"``: ``wgmma``; three launches:
+dq, dk and dv per q head into f32 partials, the sum over each kv head's
+group), float32 on the CUDA cores (two launches); :func:`bwd_launch_plan`
+holds its checks and :func:`bwd_scratch` its scratch.
 """
 from __future__ import annotations
 
@@ -40,9 +40,6 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SOURCE_BWD = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (32, 64, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
-# where the backward kernel's missing cases are queued
-BWD_TODO = "ROADMAP Queue 2 item 4, the flash backward with a prefix and at head dim 256"
 _MAX_PREFIX = (1 << 31) - 1
 ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma", torch.float16: "wgmma"}
 BWD_ROUTES = {torch.float32: "simt", torch.bfloat16: "mma", torch.float16: "mma"}
@@ -122,7 +119,7 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     else:
         lib.flash_attention_bwd_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64p,
-            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, ptr,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_int, c_int, ptr,
         ]
         lib.flash_attention_bwd_launch.restype = c_int
         lib.flash_attention_bwd_error_string.argtypes = [c_int]
@@ -279,33 +276,20 @@ flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
-def check_bwd_supported(head_dim: int, prefix_len: int | None) -> None:
-    """Raises ``ValueError`` naming where it is queued for what the
-    backward kernel does not take: a prefix, or a head dim outside
-    ``BWD_HEAD_DIMS``. Nothing gives way to the plain version."""
-    if prefix_len:
-        raise ValueError(f"flash_attention backward kernel: prefix_len={prefix_len} "
-                         f"(the prefix-LM mask) is not ported ({BWD_TODO})")
-    if head_dim not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention backward kernel takes head dim D in "
-                         f"{BWD_HEAD_DIMS}, not {head_dim} ({BWD_TODO})")
-
-
 def bwd_launch_plan(dtype: torch.dtype, shapes, strides, data_ptrs,
                     prefix_len: int = 0) -> str:
     """Route of one backward call, from q, k, v, o and dO's dtype, shapes,
     strides and data pointers and its ``prefix_len`` alone: ``"mma"``
     (bfloat16, float16) or ``"simt"`` (float32). The forward's checks on q,
-    k and v, plus: o and dO shaped like q, unit stride in the head dim, on
-    the tensor-core route rows that 16-byte loads can read (every operand's
+    k, v and ``prefix_len`` (D in ``HEAD_DIMS``, a prefix in [0, 2**31)),
+    plus: o and dO shaped like q, unit stride in the head dim, and on the
+    tensor-core route rows that 16-byte loads can read (every operand's
     data pointer and the byte strides of its dims longer than 1 multiples
-    of 16), no prefix and D in ``BWD_HEAD_DIMS`` (:func:`check_bwd_supported`).
-    Raises ``ValueError`` on anything the route cannot take."""
+    of 16). Raises ``ValueError`` on anything the route cannot take."""
     if dtype not in BWD_ROUTES:
         raise ValueError(f"flash_attention backward kernel takes float32, bfloat16 "
                          f"or float16, not {dtype}")
-    launch_plan(torch.float32, shapes[:3], strides[:3], data_ptrs[:3])
-    check_bwd_supported(tuple(shapes[0])[3], prefix_len)
+    launch_plan(torch.float32, shapes[:3], strides[:3], data_ptrs[:3], prefix_len)
     qs = tuple(shapes[0])
     for name, shape in zip(("o", "dO"), shapes[3:]):
         if tuple(shape) != qs:
@@ -340,7 +324,8 @@ def bwd_scratch(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Sk: int,
     rounded up to 4: m in log base 2, 1 / l and Delta, so that every q
     tile's statistics are 16-byte copies), and ``dk_part``, ``dv_part``
     (B, Hq, Sk, D), each q head's unscaled dk and dv before the sum over
-    its kv head's group."""
+    its kv head's group (134 MB each at paligemma's training shape, q (2,
+    8, 8192, 256))."""
     f32 = torch.float32
     if BWD_ROUTES[dtype] == "simt":
         return {"delta": ((B, Hq, Sq), f32)}
@@ -356,8 +341,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v and the forward's output ``o`` with its row statistics ``m``,
     ``l`` (``flash_attention(..., stats=True)``), and ``do``, the output's
-    gradient. Returns contiguous dq (B, Hq, Sq, D) and dk, dv (B, Hkv, Sk,
-    D) in their inputs' dtype, equal within rounding to
+    gradient; ``prefix_len`` as the forward's (causal calls only). Returns
+    contiguous dq (B, Hq, Sq, D) and dk, dv (B, Hkv, Sk, D) in their
+    inputs' dtype, equal within rounding to
     ``kernels.ref.flash_attention_bwd_plain``, the same bits from run to run
     (no atomics; every sum in a fixed order). A ``do`` without unit stride
     in the head dim is copied first; everything else the kernel cannot take
@@ -377,8 +363,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len({t.device for t in (*ts, m, l)}) != 1 or len({t.dtype for t in ts}) != 1:
         raise ValueError("flash_attention backward kernel needs q, k, v, o, dO on one "
                          "device with one dtype")
+    prefix = int(prefix_len) if causal else 0
     r = bwd_launch_plan(q.dtype, [t.shape for t in ts], [t.stride() for t in ts],
-                        [t.data_ptr() for t in ts], prefix_len if causal else 0)
+                        [t.data_ptr() for t in ts], prefix)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     check_stats((B, Hq, Sq), m, l)
@@ -395,7 +382,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         strides = (ctypes.c_int64 * 15)(*(s for t in ts for s in t.stride()[:3]))
         err = lib.flash_attention_bwd_launch(
             *(t.data_ptr() for t in (*ts, m, l, scratch[0], dq, dk, dv)), *parts, strides,
-            B, Hq, Hkv, Sq, Sk, D, _BWD_DTYPES[q.dtype], scale_f, int(causal), stream)
+            B, Hq, Hkv, Sq, Sk, D, _BWD_DTYPES[q.dtype], scale_f, int(causal), prefix,
+            stream)
     if err != 0:
         msg = lib.flash_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention backward launch failed: {msg} ({err})")

@@ -136,8 +136,6 @@ class _FlashAttention(torch.autograd.Function):
                                                    block_q=bq, block_k=bk,
                                                    return_stats=True, prefix_len=prefix)
         else:
-            # refuse what the backward kernel cannot take before the forward runs
-            _flash.check_bwd_supported(q.shape[-1], prefix)
             out, m, l = _flash.flash_attention(q, k, v, causal=causal, scale=scale,
                                                stats=True, prefix_len=prefix)
         ctx.save_for_backward(q, k, v, out, m, l)
@@ -184,8 +182,8 @@ def flash_attention(
     when a gradient is being taken the forward also keeps its row
     statistics and the backward runs the backward kernel (card) or its
     plain version (CPU); otherwise the forward alone runs, with no
-    statistics. The backward kernel takes neither a prefix nor head dim
-    256: on the card such a call raises ``ValueError`` before its forward.
+    statistics. Both kernels take every head dim in
+    ``flash_attention.HEAD_DIMS`` with or without a prefix.
     """
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]

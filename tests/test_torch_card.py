@@ -256,16 +256,36 @@ def test_flash_kernel_with_a_prefix_matches_plain(cuda, dtype, case):
     assert bool((m > -1e29).all())  # with a prefix every row has a key
 
 
-def test_flash_backward_refuses_a_prefix_and_head_dim_256(cuda):
-    """Through ``ops.flash_attention`` with a gradient: raises before the
-    forward runs, naming the ROADMAP item; never the plain version."""
-    before = flash_attention.flash_attention.launches
-    for D, prefix in ((64, 16), (256, 0)):
-        q, k, v = (t.requires_grad_(True) for t in _flash_inputs(
-            cuda, 1, 2, 1, 128, 128, D, torch.bfloat16))
-        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 4"):
-            ops.flash_attention(q, k, v, prefix_len=prefix)
-    assert flash_attention.flash_attention.launches == before
+@pytest.mark.parametrize("D, prefix", [(64, 16), (256, 0), (256, 16)])
+def test_flash_backward_takes_a_prefix_and_head_dim_256(cuda, D, prefix):
+    """Through ``ops.flash_attention`` with a gradient: the forward kernel
+    and then the backward kernel launch (never a plain version), the
+    gradients lie within ``FLASH_BWD_TOL`` of the plain backward's on the
+    plain forward's statistics, and a second call gives the same bits."""
+    fwd, bwd = flash_attention.flash_attention, flash_attention.flash_attention_bwd
+    q, k, v = _flash_inputs(cuda, 1, 8, 1, 256, 256, D, torch.bfloat16, seed=4)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        before = (fwd.launches, bwd.launches, bwd.launches_by_route["mma"])
+        out = ops.flash_attention(*leaves, prefix_len=prefix)
+        got = torch.autograd.grad(out, leaves, do)
+        assert (fwd.launches, bwd.launches, bwd.launches_by_route["mma"]) == (
+            before[0] + 1, before[1] + 1, before[2] + 1)
+        return got
+
+    got = grads()
+    po, pm, pl = ref.flash_attention_plain(q, k, v, block_q=128, block_k=128,
+                                           return_stats=True, prefix_len=prefix)
+    want = ref.flash_attention_bwd_plain(q, k, v, po, pm, pl, do, block_q=128, block_k=128,
+                                         prefix_len=prefix)
+    a, r = FLASH_BWD_TOL[torch.bfloat16]
+    for gt, w in zip(got, want):
+        top = float(w.float().abs().max())
+        assert bool(((gt.float() - w.float()).abs() <= a * top + r * w.float().abs()).all())
+    assert all(torch.equal(x, y) for x, y in zip(got, grads()))
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
@@ -413,7 +433,7 @@ def test_flash_forward_statistics(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("group", [1, 4, 7, 12])
 def test_flash_bwd_same_bits_run_to_run(cuda, group, d, dtype):
     """No atomics: dk and dv sum the group's q heads' partials in a fixed

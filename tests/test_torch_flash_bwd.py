@@ -288,6 +288,10 @@ def test_tensor_core_backward_scratch():
         nbytes = {name: 4 * int(np.prod(shape)) for name, (shape, _) in scratch.items()}
         assert nbytes == {"rows": 2_752_512, "dk_part": 58_720_256, "dv_part": 58_720_256}
     assert kernel.bwd_scratch(torch.bfloat16, 1, 7, 1, 13, 9, 32)["rows"][0] == (3, 1, 7, 16)
+    # paligemma-3b's layer (hd256p): q (2, 8, 8192, 256), k = v (2, 1, 8192, 256)
+    wide = kernel.bwd_scratch(torch.bfloat16, 2, 8, 1, 8192, 8192, 256)
+    assert {name: 4 * int(np.prod(shape)) for name, (shape, _) in wide.items()} == {
+        "rows": 1_572_864, "dk_part": 134_217_728, "dv_part": 134_217_728}
     assert kernel.bwd_scratch(torch.float32, *_TRAIN) == {
         "delta": ((B, Hq, Sq), torch.float32)}
 

@@ -9,10 +9,11 @@ row when ``col < prefix_len``, beside the right-aligned causal mask
 its plain backward) and ``multihead_attention``'s routing are held against
 the reference's on the same numpy-seeded inputs, forward and ``jax.grad``,
 for prefixes of 0, less than one block, across blocks and at or past Sk,
-with Sq != Sk both ways. Tolerance: 2e-5 (abs and rel) in f32, where the
+with Sq != Sk both ways, and the backward at head dim 256 (gemma-2b's and
+paligemma-3b's). Tolerance: 2e-5 (abs and rel) in f32, where the
 frameworks order their sums differently (the flash tests' limit). The
-kernel wrappers' checks (head dim 256, the backward's refusal of a prefix)
-run without a card.
+kernel wrappers' checks (head dim 256 with a prefix, in the forward's plan
+and the backward's) run without a card.
 """
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,8 @@ SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D)
     (1, 2, 1, 96, 64, 64),   # Sq > Sk: rows with no key unless a prefix
 ]
 PREFIXES = [0, 8, 40, 64, 200]  # none, < one block, across blocks, = Sk or Sq, past both
+# the backward also at head dim 256, MQA as gemma-2b's and paligemma-3b's heads
+BWD_SHAPES = SHAPES + [(1, 4, 1, 64, 64, 256), (1, 2, 1, 96, 64, 256)]
 
 
 def _inputs(seed, B, Hq, Hkv, Sq, Sk, D):
@@ -75,7 +78,7 @@ def test_plain_forward_matches_both_reference_lowerings(shape, prefix):
 
 
 @pytest.mark.parametrize("prefix", PREFIXES)
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
 def test_plain_backward_matches_jax_grad_of_both_lowerings(shape, prefix):
     arrs = _inputs(1, *shape)
     q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:3])
@@ -172,24 +175,32 @@ def test_launch_plan_refuses_a_negative_prefix():
         kernel.launch_plan(torch.float32, shapes, strides, [0] * 3, prefix_len=-1)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_backward_plan_refuses_a_prefix_and_head_dim_256(dtype):
-    """The backward kernel takes neither: the plan raises, naming the
-    ROADMAP item that ports them; without either it plans as before."""
-    def plan(D, prefix):
-        shapes = [(1, 2, 64, D), (1, 1, 64, D), (1, 1, 64, D), (1, 2, 64, D), (1, 2, 64, D)]
-        strides = [(2 * 64 * D, 64 * D, D, 1), (64 * D, 64 * D, D, 1), (64 * D, 64 * D, D, 1),
-                   (2 * 64 * D, 64 * D, D, 1), (2 * 64 * D, 64 * D, D, 1)]
-        return kernel.bwd_launch_plan(dtype, shapes, strides, [1 << 20] * 5, prefix)
+def _bwd_plan(dtype, D, prefix):
+    shapes = [(1, 2, 64, D), (1, 1, 64, D), (1, 1, 64, D), (1, 2, 64, D), (1, 2, 64, D)]
+    strides = [(2 * 64 * D, 64 * D, D, 1), (64 * D, 64 * D, D, 1), (64 * D, 64 * D, D, 1),
+               (2 * 64 * D, 64 * D, D, 1), (2 * 64 * D, 64 * D, D, 1)]
+    return kernel.bwd_launch_plan(dtype, shapes, strides, [1 << 20] * 5, prefix)
 
-    assert plan(128, 0) == kernel.BWD_ROUTES[dtype]
-    with pytest.raises(ValueError, match="prefix_len=16 .*ROADMAP Queue 2 item 4"):
-        plan(128, 16)
-    with pytest.raises(ValueError, match="not 256 .*ROADMAP Queue 2 item 4"):
-        plan(256, 0)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 4"):
-        kernel.check_bwd_supported(64, 1)
-    kernel.check_bwd_supported(64, None)
+
+@pytest.mark.parametrize("prefix", [0, 16])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_plan_takes_a_prefix_and_every_forward_head_dim(dtype, D, prefix):
+    """The backward kernel takes what the forward takes: every head dim of
+    ``HEAD_DIMS``, with or without a prefix, on both routes."""
+    assert D in kernel.HEAD_DIMS
+    assert _bwd_plan(dtype, D, prefix) == kernel.BWD_ROUTES[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_plan_refuses_what_the_forward_refuses(dtype):
+    """A head dim outside ``HEAD_DIMS`` and a negative prefix raise, as the
+    forward's plan does; nothing else about them is refused."""
+    with pytest.raises(ValueError, match="head dim D in .* not 48"):
+        _bwd_plan(dtype, 48, 0)
+    with pytest.raises(ValueError, match="prefix_len"):
+        _bwd_plan(dtype, 64, -1)
+    assert not hasattr(kernel, "check_bwd_supported")
 
 
 def test_kernel_wrapper_with_a_prefix_refuses_cpu_tensors():

@@ -6,7 +6,7 @@
 ``card`` builds the kernels (and checks the registers) and is run first
 whether named or not; the others run in the order given, with the
 script's settings (deterministic algorithms, no TF32). ``timing-flash``
-prints the kernels line's flash row. Each phase prints its lines and its
+and ``timing-flash-bwd`` print the kernels line's flash rows. Each phase prints its lines and its
 ``wall_s`` as in the whole script; the first failure ends the run with
 its message. For the whole script's contract run ``python3 chip_smoke.py``.
 """
@@ -26,6 +26,9 @@ PHASES = {
     "hybrid": cs.phase_hybrid,
     "moe": cs.phase_moe,
     "multimodal": cs.phase_multimodal,
+    "multimodal-long": cs.phase_multimodal_long,
+    "timing-flash-bwd": lambda card: print(json.dumps(cs.phase_flash_bwd_timing(0),
+                                                      default=str)),
 }
 
 
