@@ -296,20 +296,28 @@ Phases, each printing its own lines; any failure raises and exits nonzero
    full size (48 layers, 4 codebooks of 2,048) from a fresh init, 1,500
    frames, 64 greedy frames (the dense lowering, no flash launch), the
    same checks per codebook. Lane 2, after ``[hybrid]``;
-12. the last line: ``{"ok": true, "device": {...}}``.
+12. the sharding layer (``[mesh]``, :func:`phase_mesh`): 4 ranks on the
+   card over gloo, mesh (data=2, model=2), moonshot-v1-16b-a3b at full
+   width cut to 1 of 48 layers: the attention of the sharded step's
+   heads-split layer at a flash length, the train CLI sharded (FSDP layer
+   by layer, the expert-parallel MoE, per-rank checkpoints committed as
+   their persists land), the step-4 image restored onto (data=4,) and at
+   world size 1. Lane 1, after ``[multimodal:long]``;
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Order and overlap: 1 to 4, 5's ``[serve]``, 6 and ``[train:long]`` run one
 after another with the card to themselves, so the kernels' times are
 taken alone. Then 7, 9, 10 and 11 run in a second process of this script
 (``--lane``, its output printed when it ends) while this one runs
-``[serve:proxy]``, 8, ``[moe]`` and ``[multimodal:long]``: the two lanes
+``[serve:proxy]``, 8, ``[moe]``, ``[multimodal:long]`` and 12: the two lanes
 share no state, each path counts
 its launches in its own processes, and their wall times and step times
 are taken beside the other lane's work. The lane must end with 0 within
 ``SCRIPT_BUDGET_S`` of the script's start; on any failure it is stopped,
 with every process it started.
 
-Every phase ends with a ``[<phase>] wall_s=...`` line, and its start and
+Every phase ends with a ``[<phase>] wall_s=...`` line with its CPU seconds
+and I/O bytes, each lane with a ``[lane:N]`` total, and a phase's start and
 end also go to standard error with the time of day. It exits nonzero
 without a result when no CUDA device is available.
 """
@@ -2946,16 +2954,40 @@ def phase_moe(card: str) -> dict:
                          "flash_attention_bwd": counts["flash_attention_bwd"]}}
 
 
+def _usage() -> dict:
+    """This process's CPU seconds, user and system, its own and its waited-
+    for children's (``getrusage``), and its I/O bytes (``/proc/self/io``:
+    ``read_bytes``/``write_bytes`` reached the storage layer, ``rchar``/
+    ``wchar`` passed through read and write calls, page cache included)."""
+    import resource
+
+    me, kids = resource.getrusage(resource.RUSAGE_SELF), resource.getrusage(
+        resource.RUSAGE_CHILDREN)
+    out = {"cpu_user_s": me.ru_utime + kids.ru_utime, "cpu_sys_s": me.ru_stime + kids.ru_stime}
+    with contextlib.suppress(OSError), open("/proc/self/io") as f:
+        for line in f:
+            key, value = line.split(":")
+            if key in ("read_bytes", "write_bytes", "rchar", "wchar"):
+                out[key] = int(value)
+    return out
+
+
+def _usage_fields(before: dict, after: dict) -> str:
+    return " ".join(f"{k}={after[k] - before.get(k, 0):.1f}" if k.endswith("_s")
+                    else f"{k}={after[k] - before.get(k, 0)}" for k in after)
+
+
 @contextlib.contextmanager
 def _clock(tag: str):
-    """The phase's wall-clock line, printed when it ends; its start and end
-    also go to standard error with the time of day, so that a run cut off
-    from outside still shows which phase it was in."""
-    t0 = time.perf_counter()
+    """The phase's wall-clock line, printed when it ends, with the phase's
+    CPU seconds and I/O bytes (:func:`_usage`); its start and end also go
+    to standard error with the time of day, so that a run cut off from
+    outside still shows which phase it was in."""
+    t0, u0 = time.perf_counter(), _usage()
     print(f"{time.strftime('%H:%M:%S')} pid={os.getpid()} [{tag}] started",
           file=sys.stderr, flush=True)
     yield
-    line = f"[{tag}] wall_s={time.perf_counter() - t0:.1f}"
+    line = f"[{tag}] wall_s={time.perf_counter() - t0:.1f} {_usage_fields(u0, _usage())}"
     print(line, flush=True)
     print(f"{time.strftime('%H:%M:%S')} pid={os.getpid()} {line}", file=sys.stderr, flush=True)
 
@@ -4109,10 +4141,377 @@ def phase_cluster_proxy(card: str) -> dict:
         "flash_attention": sum(f for _, f, _, _ in rlaunches.values())}}
 
 
+# [mesh]: moonshot-v1-16b-a3b at full width, 1 of its 48 layers, sharded
+# over 4 ranks on the one card (gloo: NCCL refuses two ranks on a device)
+MESH_SHAPE, MESH_AXES, MESH_STEPS = (2, 2), ("data", "model"), 4
+MESH_ATTN = (2, 16, 8192, 128)  # moonshot's heads at 8,192 positions, bf16
+MESH_TIMEOUT_S = 240.0
+# step 5's loss at world size 1 against (data=4,)'s: within this many times
+# the bf16 loss's distance from its f32 upcast's on the same batch
+MESH_LOSS_HEADROOM = 2.0
+
+
+def _mesh_attention(rules) -> dict:
+    """The attention of one moonshot layer as the sharded step runs it on
+    this rank (``models.transformer.attend`` under the rank's config from
+    ``runtime.steps.split_config``: its 8 of 16 heads, its batch row),
+    forward and backward at 8,192 positions, where the flash kernels run,
+    held bitwise per head to the same function on the whole tensors in
+    this process (heads are independent, and with kv heads = heads the
+    backward's group sum is one head)."""
+    from repro_torch.launch import mesh as _mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.steps import split_config
+
+    cfg, mesh = rules.cfg, rules.mesh
+    rank_cfg, heads, _mlp = split_config(cfg, rules)
+    B, H, S, D = MESH_ATTN
+    if not heads or (rank_cfg.num_heads, cfg.num_heads, cfg.head_dim) != (H // 2, H, D):
+        raise SystemExit(f"[mesh] the step does not split moonshot's {cfg.num_heads} heads "
+                         f"over model: {rank_cfg.num_heads} a rank")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(MESH_ATTN, generator=gen, device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    pos = torch.arange(S, device="cuda")
+    whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, _k = tfm.attend(cfg, *whole, pos)
+    out.backward(do)
+    rows = slice(_mesh.coordinate(mesh, "data"), _mesh.coordinate(mesh, "data") + 1)
+    m = _mesh.coordinate(mesh, "model")
+    mine = slice(m * rank_cfg.num_heads, (m + 1) * rank_cfg.num_heads)
+    part = [t[rows, mine].clone().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    got, _k = tfm.attend(rank_cfg, *part, pos)
+    got.backward(do[rows, mine])
+    torch.cuda.synchronize()
+    c = _counts()
+    pairs = [(got.detach(), out.detach()[rows, mine])] + [
+        (p.grad, w.grad[rows, mine]) for p, w in zip(part, whole)]
+    bitwise = [all(torch.equal(a[:, h], b[:, h]) for a, b in pairs)
+               for h in range(rank_cfg.num_heads)]
+    return {"heads": [mine.start, mine.stop], "rows": [rows.start, rows.stop],
+            "bitwise_heads": sum(bitwise), "local_heads": len(bitwise),
+            "fwd": c["flash_attention"], "bwd": c["flash_attention_bwd"]}
+
+
+def _window_digests(ts: list[torch.Tensor]) -> list[list[int]]:
+    """Each tensor's 1 MiB chunk digests, on its device (one grouped
+    launch on the card), outside any counted window."""
+    from repro_torch.kernels.ops import host_chunk_digests
+
+    return host_chunk_digests([t.detach().contiguous() for t in ts], 1 << 20)
+
+
+def mesh_rank(cfg: dict) -> int:
+    """One rank of ``[mesh]`` (``chip_smoke.py --mesh-rank``): the attention
+    check, then the train CLI on the (2, 2) mesh, then the step-4 image
+    restored onto (data=4,) over the same 4 ranks and step 5's loss there
+    (the sharded step's forward at one microbatch). Writes what it saw to ``cfg["out"]/rank<r>.json``."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.checkpoint.manifest import load_hostmeta
+    from repro_torch.checkpoint.sharded import local_window, owns_replica
+    from repro_torch.configs import get_config
+    from repro_torch.core import RestoreManager
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.launch import mesh as _mesh
+    from repro_torch.launch import train
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.models import build, moe
+    from repro_torch.runtime.sharding import ShardingRules
+    from repro_torch.runtime.steps import batch_to_device, local_batch, relayout
+    from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
+
+    _mesh.init_distributed("gloo")
+    rank = dist.get_rank()
+    mesh = _mesh.make_mesh(MESH_SHAPE, MESH_AXES, device_type="cuda")
+    mcfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    out: dict = {"rank": rank, "attention": _mesh_attention(ShardingRules(mcfg, mesh))}
+
+    steps, syncs, commits, live4 = [], [], [], {}
+    make, cli_config, host_mesh = train.make_train_step, train.get_config, _mesh.make_host_mesh
+    base = train.CheckpointedTrainer
+
+    def counting_make(model, optimizer, **kw):
+        fn = make(model, optimizer, **kw)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            a0, t0, c0 = moe.all_to_all_calls, time.perf_counter(), _mesh.collective_s
+            b0 = _mesh.buffer_s
+            res = fn(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "collective_ms": (_mesh.collective_s - c0) * 1e3,
+                          "buffer_ms": (_mesh.buffer_s - b0) * 1e3,
+                          "loss": float(res[1]["loss"]),
+                          "all_to_all": moe.all_to_all_calls - a0})
+            return res
+
+        return step
+
+    class CountingTrainer(base):
+        def checkpoint_now(self, step, state):
+            if self.results:
+                # the last image commits as its persists land, with no
+                # later checkpoint: wait for that here, outside the
+                # trainer (and its blocking time), so that this sync takes
+                # that image's buffer again (a delta sync: one digest launch)
+                prev, t0 = self.results[-1], time.perf_counter()
+                prev.done.wait()
+                t1 = time.perf_counter()
+                while prev.step not in self.committer.committed \
+                        and time.perf_counter() - t1 < 60:
+                    time.sleep(0.005)
+                commits.append({"step": prev.step, "persist_wait_s": t1 - t0,
+                                "commit_after_persist_s": time.perf_counter() - t1,
+                                "committed": prev.step in self.committer.committed})
+            c0 = _counts()["chunk_digest"]
+            r = super().checkpoint_now(step, state)
+            syncs.append({"step": step, "digest_launches": _counts()["chunk_digest"] - c0,
+                          "blocking_s": r.blocking_s})
+            if step == 4:
+                owned = {p: leaf for p, leaf in flatten_with_paths(state["device"])[0].items()
+                         if isinstance(leaf, DTensor)
+                         and owns_replica(leaf.device_mesh, leaf.placements)}
+                digests = _window_digests([leaf.to_local() for leaf in owned.values()])
+                for (path, leaf), d in zip(owned.items(), digests):
+                    a, b = local_window(tuple(leaf.shape), leaf.device_mesh, leaf.placements)
+                    live4["device/" + path] = [a, b, d]
+            return r
+
+    argv = ["--arch", MOE_ARCH, "--steps", str(MESH_STEPS), "--batch", str(BATCH),
+            "--seq", str(SEQ), "--lr", str(LR), "--ckpt-every", "2", "--backend", "fork",
+            "--codec", "none", "--log-every", "1", "--dist-backend", "gloo",
+            "--ckpt-dir", cfg["store"]]
+    train.make_train_step, train.CheckpointedTrainer = counting_make, CountingTrainer
+    train.get_config = lambda name, smoke=False: mcfg
+    _mesh.make_host_mesh = lambda *a, **k: mesh
+    try:
+        t0 = time.perf_counter()
+        res = train.train(argv)
+        out["train_s"] = time.perf_counter() - t0
+    finally:
+        train.make_train_step, train.CheckpointedTrainer = make, base
+        train.get_config, _mesh.make_host_mesh = cli_config, host_mesh
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    hm = load_hostmeta(cfg["store"], 4, rank)
+    written = {p: sorted([list(s.start), list(s.stop)] for s in lv.shards)
+               for p, lv in hm.leaves.items() if lv.shards}
+    owned = {p: [[a, b]] for p, (a, b, _d) in live4.items()}
+    # rank 0 also writes the leaves that are not DTensors: the step and the host's
+    others = {p for p in hm.leaves if p == "device/step" or p.startswith("host/")}
+    out.update(steps=steps, syncs=syncs, commits=commits, live4=live4,
+               staged_bytes=_mesh.staged_bytes,
+               collective_s=_mesh.collective_s,
+               persisted_only_owned=written == dict(
+                   owned, **({p: written.get(p) for p in others} if rank == 0 else {})))
+
+    # the step-4 image onto (data=4,) over the same ranks, step 5's loss there
+    t0 = time.perf_counter()
+    mesh4 = _mesh.make_mesh((4,), ("data",), device_type="cuda")
+    run4 = train.build_training(mcfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=MESH_STEPS,
+                                device=torch.device("cuda", torch.cuda.current_device()),
+                                rules=ShardingRules(mcfg, mesh4))
+    state, _m = RestoreManager(ChunkStore(cfg["store"])).restore(step=4,
+                                                                 device_for=run4.device_for)
+    blocks = {p: leaf for p, leaf in flatten_with_paths(state["device"])[0].items()
+              if isinstance(leaf, DTensor)}
+    restored4 = {}
+    for (path, leaf), d in zip(blocks.items(),
+                               _window_digests([b.to_local() for b in blocks.values()])):
+        a, b = local_window(tuple(leaf.shape), mesh4, leaf.placements)
+        restored4["device/" + path] = [a, b, d]
+    out["restore4_read_s"] = time.perf_counter() - t0
+    data = SyntheticBatches.from_state(mcfg, batch=BATCH, seq_len=SEQ,
+                                       state=state["host"]["data"])
+    # step 5's loss, as the sharded step computes it before its update: the
+    # params gathered, each rank's rows, the mean over the ranks (no
+    # backward: the check is the loss)
+    t4, c4 = time.perf_counter(), _mesh.collective_s
+    flat, treedef = flatten_with_paths(state["device"]["params"])
+    params = unflatten_from_paths(treedef, {
+        p: relayout(t.to_local(), mesh4, t.placements, (Replicate(),)) for p, t in flat.items()})
+    rows = local_batch(batch_to_device(next(data), "cuda"), ShardingRules(mcfg, mesh4))
+    with torch.no_grad(), _mesh.use_mesh(mesh4):
+        loss = build(mcfg).loss(params, rows)[0]  # with the MoE aux, as a step's
+    loss4 = float(_mesh.all_reduce(loss, mesh4, "data")) / 4
+    del params
+    out.update(restored4=restored4, step5_data4=loss4,
+               step5_data4_ms=(time.perf_counter() - t4) * 1e3,
+               step5_data4_collective_ms=(_mesh.collective_s - c4) * 1e3,
+               restore4_s=time.perf_counter() - t0)
+    with open(os.path.join(cfg["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(card: str) -> dict:
+    """The sharding layer on the card (``[mesh]``): 4 ranks on the one H100
+    over gloo with CUDA tensors (every collective staged through the host
+    by ``launch.mesh.host_staged``, its bytes and seconds counted), mesh
+    (data=2, model=2), moonshot-v1-16b-a3b at full width cut to 1 of 48
+    layers.
+
+    Each rank: one moonshot layer's attention (16 heads x 128, 8,192
+    positions, bf16) forward and backward as the sharded step runs it on
+    the rank's heads (``_mesh_attention``): its flash kernels run on 8
+    heads of 1 batch row, bitwise per head equal to the same function on
+    the whole tensors; then the train CLI (batch 4, seq 512, 2
+    microbatches, remat dots, 4 steps, fork checkpoints at 2 and 4; the
+    layer weights gathered one layer at a time): the expert-parallel MoE's
+    all-to-alls every step, the step-2 image committed once its persists
+    landed with no later checkpoint (the script waits for that before step
+    4's, outside the trainer), each rank's digest launches per sync ([0,
+    1]: a buffer's first sync defers its digests to the persist, and step
+    4's takes step 2's buffer again), and each rank's step-4 hostmeta
+    holding its owned blocks and nothing else; then
+    the step-4 image restored onto (data=4,) over the same ranks and step
+    5's loss there (the sharded step's forward, one microbatch: 4 rows do
+    not split into 2 over 4 ranks).
+    Here: the step-4 image restored at world size 1 bitwise equal to the
+    run's state (every rank's owned windows, and the (data=4,) windows, by
+    their chunk digests), and one step from it at one microbatch, whose
+    loss must lie within the bf16 tolerance of the (data=4,) loss (the
+    same MoE formulation: without a model axis both route groups of the
+    whole batch); the tolerance is ``MESH_LOSS_HEADROOM`` times the bf16
+    loss's distance from its f32 upcast's there (the loss with the MoE aux,
+    as a step reports it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import RestoreManager
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.launch import mesh as _mesh
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import build
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime.steps import batch_to_device, make_train_step
+    from repro_torch.utils.tree import flatten_with_paths
+
+    mcfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    free, _total = torch.cuda.mem_get_info()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        store = os.path.join(tmp, "ckpt")
+        arg = json.dumps({"store": store, "out": tmp})
+        t0 = time.perf_counter()
+        procs = _mesh.launch([sys.executable, str(Path(__file__).resolve()), "--mesh-rank", arg],
+                             4, timeout=MESH_TIMEOUT_S, capture=True)
+        ranks_s = time.perf_counter() - t0
+        for p in procs[:1]:
+            sys.stdout.write("".join(f"[mesh:rank0] {ln}\n" for ln in p.stdout.splitlines()
+                                     if ln.startswith("[")))
+        bad = [(r, p.returncode, (p.stderr or "")[-3000:]) for r, p in enumerate(procs)
+               if p.returncode != 0]
+        if bad:
+            raise SystemExit(f"[mesh] ranks failed (rank, code, stderr tail): {bad}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(4)]
+        for r in ranks:
+            a = r["attention"]
+            print(f"[mesh] rank={r['rank']} attention rows={a['rows']} heads={a['heads']} "
+                  f"bitwise_heads={a['bitwise_heads']}/{a['local_heads']} fwd={a['fwd']} "
+                  f"bwd={a['bwd']} train_s={r['train_s']:.1f} restore4_s={r['restore4_s']:.1f} "
+                  f"restore4_read_s={r['restore4_read_s']:.1f} "
+                  f"data4_loss_ms={r['step5_data4_ms']:.1f} "
+                  f"data4_collective_ms={r['step5_data4_collective_ms']:.1f} "
+                  f"staged_bytes={r['staged_bytes']} collective_s={r['collective_s']:.1f} "
+                  f"digest_launches={[x['digest_launches'] for x in r['syncs']]} "
+                  f"blocking_ms={[round(x['blocking_s'] * 1e3, 1) for x in r['syncs']]} "
+                  f"persist_wait_s={[round(x['persist_wait_s'], 2) for x in r['commits']]} "
+                  f"commit_after_persist_ms="
+                  f"{[round(x['commit_after_persist_s'] * 1e3, 1) for x in r['commits']]} "
+                  f"persisted_only_owned={r['persisted_only_owned']}", flush=True)
+        for i, s in enumerate(ranks[0]["steps"]):
+            print(f"[mesh] step={i + 1} ms={[round(r['steps'][i]['ms'], 1) for r in ranks]} "
+                  f"collective_ms={[round(r['steps'][i]['collective_ms'], 1) for r in ranks]} "
+                  f"buffer_ms={[round(r['steps'][i]['buffer_ms'], 1) for r in ranks]} "
+                  f"loss={s['loss']:.6f} all_to_all={[r['steps'][i]['all_to_all'] for r in ranks]}",
+                  flush=True)
+        for r in ranks:
+            a = r["attention"]
+            if a["bitwise_heads"] != a["local_heads"] or a["local_heads"] != 8 \
+                    or (a["fwd"], a["bwd"]) != (1, 1):
+                raise SystemExit(f"[mesh] rank {r['rank']} attention not bitwise per head "
+                                 f"on 8 heads with one forward and one backward: {a}")
+            if [x["digest_launches"] for x in r["syncs"]] != [0, 1]:
+                raise SystemExit(f"[mesh] rank {r['rank']} digest launches per sync "
+                                 f"{r['syncs']}, want [0, 1]")
+            if [(x["step"], x["committed"]) for x in r["commits"]] != [(2, True)]:
+                raise SystemExit(f"[mesh] rank {r['rank']}: the step-2 image did not commit "
+                                 f"once its persists landed: {r['commits']}")
+            if not r["persisted_only_owned"]:
+                raise SystemExit(f"[mesh] rank {r['rank']} persisted other than its owned blocks")
+            if len(r["steps"]) != MESH_STEPS or any(s["all_to_all"] <= 0 for s in r["steps"]):
+                raise SystemExit(f"[mesh] rank {r['rank']} steps without the expert-parallel "
+                                 f"all-to-all: {r['steps']}")
+
+        # the step-4 image at world size 1
+        t1 = time.perf_counter()
+        run = build_training(mcfg, batch=BATCH, seq=SEQ, lr=LR, total_steps=MESH_STEPS,
+                             device=cuda)
+        state, _m = RestoreManager(ChunkStore(store)).restore(step=4, device_for=run.device_for)
+        flat = flatten_with_paths(state)[0]
+        restore1_s = time.perf_counter() - t1
+        windows = mismatched = 0
+        for r in ranks:
+            for key in ("live4", "restored4"):
+                wins = r[key]
+                got = _window_digests([flat[p][tuple(slice(x, y) for x, y in zip(a, b))]
+                                       for p, (a, b, _d) in wins.items()])
+                windows += len(wins)
+                mismatched += sum(g != w[2] for g, w in zip(got, wins.values()))
+        covered = sum(math.prod(y - x for x, y in zip(a, b))
+                      for r in ranks for a, b, _d in r["live4"].values())
+        whole = sum(t.numel() for p, t in flat.items()
+                    if p.startswith("device/") and p != "device/step")
+        data = SyntheticBatches.from_state(mcfg, batch=BATCH, seq_len=SEQ,
+                                           state=state["host"]["data"])
+        batch = batch_to_device(next(data), cuda)
+        with torch.no_grad():
+            loss32 = float(build(_f32_config(mcfg)).loss(_f32(state["device"]["params"]),
+                                                       batch)[0])
+        step1 = make_train_step(build(mcfg), get_optimizer(mcfg.optimizer, LR), microbatches=1)
+        _dev, metrics = step1(state["device"], batch)
+        loss1 = float(metrics["loss"])
+        world1_s = time.perf_counter() - t1
+    loss4 = ranks[0]["step5_data4"]
+    tol = MESH_LOSS_HEADROOM * abs(loss32 - loss1)
+    print(f"[mesh] {card} ranks_s={ranks_s:.1f} world1_s={world1_s:.1f} "
+          f"restore1_s={restore1_s:.1f} "
+          f"free_gb_before={free / 1e9:.1f} windows={windows} mismatched={mismatched} "
+          f"covered={covered} state_elems={whole} step5 world1={loss1:.6f} "
+          f"data4={loss4:.6f} f32={loss32:.6f} tol={tol:.6f}", flush=True)
+    if mismatched or covered != whole:
+        raise SystemExit(f"[mesh] the world-1 restore differs from the sharded state in "
+                         f"{mismatched} of {windows} windows (owned blocks cover {covered} "
+                         f"of {whole} elements)")
+    if abs(loss1 - loss4) > tol:
+        raise SystemExit(f"[mesh] step 5 from the world-1 restore {loss1} vs (data=4,) "
+                         f"{loss4}: beyond {tol}")
+    return {"launches": {
+        "chunk_digest": [sum(x["digest_launches"] for x in r["syncs"]) for r in ranks],
+        "flash_attention": [r["attention"]["fwd"] for r in ranks],
+        "flash_attention_bwd": [r["attention"]["bwd"] for r in ranks]},
+        "staged_bytes": [r["staged_bytes"] for r in ranks]}
+
+
 def lane_child(cfg: dict) -> int:
-    """``[proxy]``, the cluster phases, ``[hybrid]`` and ``[multimodal]``, in a process of
-    their own that the script runs beside its ``[serve:proxy]``, ``[uvm]``
-    and ``[moe]``: each path
+    """``[proxy]``, the cluster phases, ``[hybrid]`` and ``[multimodal]``, in
+    a process of their own that the script runs beside its
+    ``[serve:proxy]``, ``[uvm]``, ``[moe]``, ``[multimodal:long]`` and
+    ``[mesh]``: each path
     counts its launches where it runs (this process, its proxies, its
     ranks), none shares state with the other lane, and the card holds
     both. Writes each path's launches to ``cfg["out"]`` as JSON."""
@@ -4135,6 +4534,7 @@ def lane_child(cfg: dict) -> int:
     torch.cuda.empty_cache()
     with _clock("multimodal"):
         multimodal = phase_multimodal(card)
+    print(f"[lane:2] {_usage_fields({}, _usage())}", flush=True)
     with open(cfg["out"], "w") as f:
         json.dump({"proxy": proxied["launches"], "cluster": clustered["launches"],
                    "cluster_proxy": clustered["launches_proxy"],
@@ -4192,6 +4592,7 @@ def main() -> int:
     ap.add_argument("--proxy-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--lane", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.proxy_child is not None:
         return proxy_child(json.loads(args.proxy_child))
@@ -4207,6 +4608,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.lane is not None:
         return lane_child(json.loads(args.lane))
+    if args.mesh_rank is not None:
+        return mesh_rank(json.loads(args.mesh_rank))
     t_script = time.perf_counter()
     with _clock("card"):
         card = phase_card()
@@ -4243,10 +4646,10 @@ def main() -> int:
             row["launches_train_long"] = long_run["launches"][row["name"]]
         gc.collect()
         torch.cuda.empty_cache()  # the card's memory for both lanes
-        # [proxy] and the cluster phases run in a second process of this
-        # script (its output printed when it ends), [serve:proxy], [uvm],
-        # [moe] and [multimodal:long] here: the kernels' times above ran
-        # with the card to themselves
+        # [proxy], the cluster phases, [hybrid] and [multimodal] run in a
+        # second process of this script (its output printed when it ends),
+        # [serve:proxy], [uvm], [moe], [multimodal:long] and [mesh] here:
+        # the kernels' times above ran with the card to themselves
         lane_out, lane_log = os.path.join(tmp, "lane.json"), os.path.join(tmp, "lane.log")
         with open(lane_log, "w") as log:
             lane = subprocess.Popen(
@@ -4266,6 +4669,11 @@ def main() -> int:
             torch.cuda.empty_cache()
             with _clock("multimodal:long"):
                 mm_long = phase_multimodal_long(card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            with _clock("mesh"):
+                meshed = phase_mesh(card)
+            print(f"[lane:1] {_usage_fields({}, _usage())}", flush=True)
             laned = _lane_result(lane, lane_log, lane_out, t_script)
         finally:
             _stop_lane(lane)
@@ -4287,6 +4695,8 @@ def main() -> int:
         row["launches_cluster_remote"] = laned["cluster_remote"].get(row["name"])
         row["launches_moe"] = moed["launches"][row["name"]]
         row["launches_multimodal_long"] = mm_long["launches"][row["name"]]
+        # per rank: the digest's over the run's syncs, the attention check's
+        row["launches_mesh"] = meshed["launches"][row["name"]]
         row["launches_hybrid"] = laned["hybrid"][row["name"]]
         row["launches_multimodal"] = laned["multimodal"][row["name"]]
     print(f"[script] wall_s={time.perf_counter() - t_script:.1f}", flush=True)

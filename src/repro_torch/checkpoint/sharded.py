@@ -3,9 +3,13 @@
 The CRUM principle applied to a cluster: the checkpoint image holds *no
 device state*. Leaves are stored as global logical arrays; every rank
 writes only the shards it owns, keyed by their global index ranges
-(:func:`host_slice_plan` is the ownership rule), and a restore onto any
-rank count assembles each window it needs from whichever stored shards
-overlap it. Bytes become a tensor through ``torch.frombuffer`` and a dtype
+(:func:`host_slice_plan` is the ownership rule of a replicated state; a
+DTensor's rank owns its local shard when its coordinate is 0 on every mesh
+dim the leaf is replicated over, the reference's ``replica_id == 0``), and
+a restore onto any rank count or mesh assembles each window it needs from
+whichever stored shards overlap it, reading only the chunks that hold the
+window's bytes (a :class:`ShardTarget` names a mesh and its placements).
+Bytes become a tensor through ``torch.frombuffer`` and a dtype
 view, with the dtype named in the manifest mapped through
 ``utils.dtypes`` — no ``ml_dtypes`` — and the result is moved to the target
 device.
@@ -14,6 +18,7 @@ from __future__ import annotations
 
 import math
 import zlib
+from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
@@ -72,6 +77,45 @@ def host_slice_plan(
     if zlib.crc32(path.encode()) % n_hosts == host:
         return [0] * len(shape), list(shape)
     return None
+
+
+@dataclass(frozen=True)
+class ShardTarget:
+    """Where a restored leaf goes under a mesh: this rank's block of it, as
+    a DTensor with ``placements`` on ``mesh`` (a ``DeviceMesh``), its local
+    tensor on ``device``. Not a tuple, so that a tree of them has one leaf
+    per target."""
+
+    mesh: Any
+    placements: tuple
+    device: Any
+
+
+def local_window(shape: tuple[int, ...], mesh, placements) -> tuple[list[int], list[int]]:
+    """The global [start, stop) of this rank's block of a leaf of ``shape``
+    laid out by ``placements`` on ``mesh``. A dim sharded over several mesh
+    dims splits in mesh order, the first mesh dim major (DTensor's layout).
+    Every split must divide."""
+    coord = mesh.get_coordinate()
+    sizes = tuple(mesh.shape)
+    start, size = [0] * len(shape), list(shape)
+    for i, pl in enumerate(placements):
+        if not pl.is_shard():
+            continue
+        d = pl.dim
+        if size[d] % sizes[i]:
+            raise ValueError(f"dim {d} of {tuple(shape)} ({size[d]} here) does not split "
+                             f"over {sizes[i]} ranks")
+        size[d] //= sizes[i]
+        start[d] += coord[i] * size[d]
+    return start, [a + n for a, n in zip(start, size)]
+
+
+def owns_replica(mesh, placements) -> bool:
+    """This rank writes its block: coordinate 0 on every mesh dim the leaf
+    is replicated over."""
+    return all(c == 0 for c, pl in zip(mesh.get_coordinate(), placements)
+               if pl.is_replicate())
 
 
 def _leaf_shards(leaf: Any) -> list[tuple[list[int], list[int], np.ndarray]]:
@@ -194,8 +238,30 @@ class _LeafAssembler:
             self._shard_cache[i] = t
         return self._shard_cache[i]
 
+    def _part(self, i: int, lo: int, hi: int) -> torch.Tensor:
+        """Elements [lo, hi) (flat, C order) of stored shard i, read from
+        the chunks that hold them and no other."""
+        s = self.lrec.shards[i]
+        isz = self.dtype.itemsize
+        b_lo, b_hi = lo * isz, hi * isz
+        buf = bytearray(b_hi - b_lo)
+        off = 0
+        for c in s.chunks:
+            c_lo, off = off, off + c.raw_len
+            if off <= b_lo or c_lo >= b_hi:
+                continue
+            raw = self.store.read_chunk(c)
+            a, b = max(c_lo, b_lo), min(off, b_hi)
+            buf[a - b_lo : b - b_lo] = memoryview(raw)[a - c_lo : b - c_lo]
+        if off < b_hi:
+            raise IOError(f"stored shard {s.start}:{s.stop} of {self.lrec.path} has "
+                          f"{off} bytes, expected at least {b_hi}")
+        return torch.frombuffer(buf, dtype=torch.uint8).view(self.dtype)
+
     def window(self, start: list[int], stop: list[int]) -> torch.Tensor:
-        """Assemble the [start, stop) window from overlapping stored shards."""
+        """Assemble the [start, stop) window from overlapping stored shards,
+        reading of each only the chunks between the overlap's first and
+        last element."""
         out_shape = tuple(b - a for a, b in zip(start, stop))
         if not out_shape:  # 0-d leaf
             return self._shard_tensor(0).clone()
@@ -206,11 +272,18 @@ class _LeafAssembler:
             hi = [min(b, sb) for b, sb in zip(stop, s.stop)]
             if any(l >= h for l, h in zip(lo, hi)):
                 continue
-            src = self._shard_tensor(i)[
-                tuple(slice(l - sa, h - sa) for l, h, sa in zip(lo, hi, s.start))
-            ]
+            size = [h - l for l, h in zip(lo, hi)]
+            if i in self._shard_cache:
+                src = self._shard_cache[i][
+                    tuple(slice(l - sa, h - sa) for l, h, sa in zip(lo, hi, s.start))]
+            else:
+                shp = [b - a for a, b in zip(s.start, s.stop)]
+                strides = [math.prod(shp[d + 1:]) for d in range(len(shp))]
+                first = sum((l - sa) * st for l, sa, st in zip(lo, s.start, strides))
+                last = sum((h - 1 - sa) * st for h, sa, st in zip(hi, s.start, strides))
+                src = self._part(i, first, last + 1).as_strided(size, strides, 0)
             out[tuple(slice(l - a, h - a) for l, h, a in zip(lo, hi, start))] = src
-            filled += src.numel()
+            filled += math.prod(size)
         if filled < math.prod(out_shape):
             raise ValueError(
                 f"stored shards do not cover window {start}:{stop} of "
@@ -238,11 +311,21 @@ def _placed(t: torch.Tensor, device: torch.device | str | None) -> Any:
 
 
 def restore_leaf(
-    store: ChunkStore, lrec: LeafRecord, device: torch.device | str | None
+    store: ChunkStore, lrec: LeafRecord, device: "torch.device | str | ShardTarget | None"
 ) -> Any:
-    """Restore one leaf: a tensor on ``device``, or a host value without
-    one (see :func:`_placed`)."""
-    return _placed(_LeafAssembler(store, lrec).full(), device)
+    """Restore one leaf: a tensor on ``device``, a host value without one
+    (see :func:`_placed`), or for a :class:`ShardTarget` this rank's block
+    as a DTensor, assembled from its window alone."""
+    asm = _LeafAssembler(store, lrec)
+    if isinstance(device, ShardTarget):
+        from torch.distributed.tensor import DTensor
+
+        start, stop = local_window(asm.shape, device.mesh, device.placements)
+        local = asm.window(start, stop).to(device.device)
+        strides = tuple(math.prod(asm.shape[d + 1:]) for d in range(len(asm.shape)))
+        return DTensor.from_local(local, device.mesh, device.placements, run_check=False,
+                                  shape=torch.Size(asm.shape), stride=strides)
+    return _placed(asm.full(), device)
 
 
 def restore_pytree(

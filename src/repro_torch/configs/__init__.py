@@ -6,8 +6,9 @@ vision-language model (paligemma-3b) and the audio model over codebooks
 (musicgen-medium). Their configs are the reference's, field for field;
 qwen2-0.5b trains on one card at full size, mamba2-130m and
 musicgen-medium serve at full size, moonshot-v1-16b-a3b, zamba2-1.2b and
-paligemma-3b train at full width (cut in depth); the others' full sizes
-need the sharding the port does not have yet (``runtime/sharding.py``).
+paligemma-3b train at full width (cut in depth), moonshot-v1-16b-a3b also
+sharded over 4 ranks; the others' full sizes need more cards than one,
+sharded by ``runtime/sharding.py``.
 """
 from __future__ import annotations
 

@@ -50,6 +50,7 @@ total persist time: the 40x headline of Table 2 is precisely
 from __future__ import annotations
 
 import concurrent.futures as cf
+import gc
 import os
 import pickle
 import struct
@@ -397,6 +398,14 @@ class ForkPersistBackend(PersistBackend):
                 )
                 pid = os.fork()
             if pid == 0:  # ---- child: persist and report, then _exit ------
+                # The child inherits the parent's uncollected garbage: a
+                # finished managed space waits in reference cycles with its
+                # host backing mapped MADV_DONTFORK, so absent here, and
+                # destroying it here would munmap a range the child may have
+                # reused for its own buffers (a SIGSEGV later); a card
+                # tensor's destructor would call into CUDA. Frozen, nothing
+                # inherited is ever collected in the child.
+                gc.freeze()
                 code = 0
                 try:
                     os.close(rfd)

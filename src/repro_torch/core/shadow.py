@@ -200,9 +200,20 @@ class HostShardView:
 def _owned_host_shards(leaf: Any):
     """(ordinal, start, stop, data) for the shards this process owns.
 
-    A tensor is one shard: the whole leaf (the port runs on one card); a
-    :class:`HostShardView` is its window, or nothing when unowned.
+    A tensor is one shard: the whole leaf; a DTensor its local block when
+    this rank owns it (``checkpoint.sharded.owns_replica``), keyed by the
+    block's global window; a :class:`HostShardView` is its window, or
+    nothing when unowned.
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        from repro_torch.checkpoint.sharded import local_window, owns_replica
+
+        if not owns_replica(leaf.device_mesh, leaf.placements):
+            return []
+        start, stop = local_window(tuple(leaf.shape), leaf.device_mesh, leaf.placements)
+        return [(0, start, stop, leaf.to_local())]
     if isinstance(leaf, HostShardView):
         if leaf.data is None:
             return []

@@ -32,9 +32,22 @@ tensors and write-allocates the results back, and the checkpointer
 consumes the space's page-granular dirty history (page-delta sync instead
 of whole-leaf digest scans). In proxy mode the budget applies inside the
 proxy process instead.
+
+Mesh axis (``mesh=``, a ``DeviceMesh`` over the ranks of an initialised
+process group; one trainer per rank): the device state is DTensors, each
+rank persists only the blocks it owns (and rank 0 the host leaves) as its
+own hostmeta, and one image over all ranks commits as soon as every
+rank's persist has landed (:class:`RankCommitter`, a thread of each rank):
+the ranks agree that all succeeded, rank 0 merges the hostmetas and writes
+MANIFEST and COMMIT (the cluster coordinator's two-phase commit), and
+then collects old images, pinning every rank's in-flight delta bases. Restore
+places each rank's blocks through ``device_for`` returning
+``checkpoint.sharded.ShardTarget``.
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from typing import Any, Callable, Iterator
 
@@ -49,6 +62,7 @@ from repro_torch.core.restore import DeviceFor, RestoreManager
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.utils.timing import Timings
+from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
 
 DEVICE_RUNNERS = ("inline", "proxy")
 
@@ -75,10 +89,13 @@ class CheckpointedTrainer:
         promote_threshold: int = 0,
         promote_window: int = 0,
         device: str | torch.device = "cuda",
+        mesh: Any = None,
         timings: Timings | None = None,
     ):
         """``device`` is where an inline managed space keeps its frames
-        (the card unless the caller asks for the CPU)."""
+        (the card unless the caller asks for the CPU); ``mesh`` makes this
+        the trainer of one rank of a sharded state (``host`` is then the
+        rank)."""
         if device_runner not in DEVICE_RUNNERS:
             raise ValueError(
                 f"unknown device_runner {device_runner!r}; have {DEVICE_RUNNERS}"
@@ -97,6 +114,12 @@ class CheckpointedTrainer:
         self.promote_window = int(promote_window)
         self.device = device
         self.space = None  # ManagedSpace, created on first run() when capped
+        self.mesh = mesh
+        if mesh is not None:
+            import torch.distributed as dist
+
+            host = dist.get_rank()
+        self.host = host
         self.checkpointer = ForkedCheckpointer(
             self.store,
             codec=codec,
@@ -105,8 +128,13 @@ class CheckpointedTrainer:
             io_workers=io_workers,
             host=host,
             backend=backend,
+            external_commit=mesh is not None,
             timings=self.timings,
         )
+        self.committer = None
+        if mesh is not None:
+            self.committer = RankCommitter(self.checkpointer, collect=lambda extra: (
+                self.policy.run_gc(self.store, extra_keep=extra)) if host == 0 else None)
         self.restorer = RestoreManager(self.store, timings=self.timings)
         self.results: list[CheckpointResult] = []
         self.runner = None
@@ -365,10 +393,15 @@ class CheckpointedTrainer:
         return self.space.stats_dict() if self.space is not None else None
 
     def checkpoint_now(self, step: int, state: Any) -> CheckpointResult:
+        if self.mesh is not None:
+            state = owned_view(state, self.host)
         r = self.checkpointer.save_async(step, state, meta={"wall": time.time()})
         self.results.append(r)
         self.policy.notify_checkpointed(step)
-        self._gc()
+        if self.committer is not None:
+            self.committer.submit(r)
+        else:
+            self._gc()
         return r
 
     def _gc(self) -> None:
@@ -388,14 +421,121 @@ class CheckpointedTrainer:
         self.checkpointer.wait_all()
         for r in self.results:
             r.done.wait()
+        if self.committer is not None:
+            self.committer.close()
         self.checkpointer.close()
         if self.runner is not None:
             self.runner.close()
-        self._gc()  # in-flight persists have committed by now
+        if self.host == 0 or self.mesh is None:
+            self._gc()  # in-flight persists have committed by now
         if self.space is not None:
             obs_metrics.absorb_paging(self.space.stats_dict())
         obs_metrics.dump_if_enabled("app")
         return list(self.results)
+
+
+def owned_view(state: Any, rank: int) -> Any:
+    """``state`` as one rank of a sharded run persists it: DTensors as they
+    are (each rank writes the blocks it owns), every other leaf on rank 0
+    only (elsewhere an unowned ``HostShardView`` of its shape and dtype)."""
+    if rank == 0:
+        return state
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.shadow import HostShardView
+    from repro_torch.utils.dtypes import dtype_name, leaf_shape
+
+    flat, treedef = flatten_with_paths(state)
+    return unflatten_from_paths(treedef, {
+        p: leaf if isinstance(leaf, DTensor) else HostShardView(
+            None, global_shape=leaf_shape(leaf), dtype=dtype_name(leaf))
+        for p, leaf in flat.items()})
+
+
+def commit_ranks(checkpointer: ForkedCheckpointer, results: list[CheckpointResult],
+                 group=None) -> list[int]:
+    """Commit the checkpoints every rank of the process group (or of
+    ``group``) staged (``external_commit``), in order, together: each rank
+    waits for its persist, all agree that every one succeeded, rank 0
+    merges the hostmetas and writes MANIFEST and COMMIT, and each rank
+    takes the image as its delta base (or drops it if one failed). A
+    collective; returns the steps committed."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manifest import commit_manifest, merge_hostmetas
+
+    device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    root = checkpointer.store.root
+    committed = []
+    for r in results:
+        r.done.wait()
+        ok = torch.tensor([0 if r.error else 1], dtype=torch.int32, device=device)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+        if not int(ok.item()):
+            checkpointer.commit_aborted(r.step)
+            continue
+        if dist.get_rank() == 0:
+            m = merge_hostmetas(root, r.step, hosts=list(range(dist.get_world_size())))
+            commit_manifest(root, m, durable=checkpointer.fsync)
+        dist.barrier(group=group)
+        checkpointer.commit_confirmed(r.step)
+        committed.append(r.step)
+    return committed
+
+
+class RankCommitter:
+    """Commits one rank's checkpoints with the other ranks' as soon as all
+    their persists have landed, on a thread of its own, in order
+    (:func:`commit_ranks`), over a gloo group of its own so that its
+    collectives never interleave with the step's. After each commit the
+    ranks share the delta bases their in-flight persists read, and
+    ``collect`` (rank 0's garbage collection) runs pinning all of them: a
+    rank that had not yet seen the last commit when it began a persist
+    bases it on an older image. Made by every rank together (a
+    collective)."""
+
+    def __init__(self, checkpointer: ForkedCheckpointer,
+                 collect: Callable[[set[int]], Any] | None = None):
+        import torch.distributed as dist
+
+        self.checkpointer = checkpointer
+        self.collect = collect
+        self.group = dist.new_group(backend="gloo")
+        self.committed: list[int] = []  # steps, in commit order
+        self.error: BaseException | None = None
+        self._queue: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(target=self._run, name="crum-rank-commit", daemon=True)
+        self._thread.start()
+
+    def submit(self, result: CheckpointResult) -> None:
+        self._queue.put(result)
+
+    def _run(self) -> None:
+        while (r := self._queue.get()) is not None:
+            try:
+                done = commit_ranks(self.checkpointer, [r], group=self.group)
+                self.committed += done
+                if done:
+                    self._collect()
+            except BaseException as e:  # surfaced by close()
+                self.error = e
+                return
+
+    def _collect(self) -> None:
+        import torch.distributed as dist
+
+        bases: list = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(bases, sorted(self.checkpointer.inflight_delta_bases()),
+                               group=self.group)
+        if self.collect is not None:
+            self.collect(set().union(*map(set, bases)))
+
+    def close(self) -> None:
+        """Commit what was submitted, then stop the thread."""
+        self._queue.put(None)
+        self._thread.join()
+        if self.error is not None:
+            raise RuntimeError("committing a sharded checkpoint failed") from self.error
 
 
 def _get(tree: Any, *keys: str, default=None) -> Any:

@@ -10,10 +10,17 @@ the card, and this process keeps the host mirror and checkpoints it. With
 space whose frames on the device hold at most that many bytes (a
 percentage is of the state's size): every step faults the state in,
 evicting and writing back under the budget, and the checkpointer syncs
-page deltas. ``--production-mesh`` raises: not ported. The
-CheckpointedTrainer provides forked checkpointing, incremental persistence
-and restart: re-running the same command resumes from the newest
-committed step.
+page deltas. The CheckpointedTrainer provides forked checkpointing,
+incremental persistence and restart: re-running the same command resumes
+from the newest committed step.
+
+Launched as N ranks (torchrun, or ``python -m repro_torch.launch.mesh
+--nproc N -- ...``) with ``--dist-backend gloo|nccl``, the state is
+sharded over a (N,) mesh over ``data`` (FSDP, the reference's host mesh),
+or over the production mesh with ``--production-mesh`` (256 ranks; 512
+with two pods is the reference's ``multi_pod``); each rank checkpoints the
+blocks it owns into one image, and a restart resumes onto whatever world
+size it is started with. Sharded runs take the inline runner only.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --steps 6 --batch 4 --seq 512 --ckpt-every 2 --backend fork \\
@@ -26,6 +33,10 @@ committed step.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --smoke --steps 6 --batch 4 --seq 32 --ckpt-every 2 \\
         --device-capacity 50% --device cpu --ckpt-dir /tmp/ck-uvm
+    PYTHONPATH=src python -m repro_torch.launch.mesh --nproc 2 -- \\
+        python -m repro_torch.launch.train --arch qwen2-0.5b --smoke \\
+        --steps 6 --batch 4 --seq 32 --ckpt-every 2 --dist-backend gloo \\
+        --device cpu --ckpt-dir /tmp/ck-mesh
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import DEFAULT_CODEC
+from repro_torch.checkpoint.sharded import ShardTarget
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core import (
     CheckpointedTrainer,
@@ -49,10 +61,17 @@ from repro_torch.core import (
     list_persist_backends,
 )
 from repro_torch.data import SyntheticBatches
+from repro_torch.launch import mesh as _mesh
 from repro_torch.models import ModelConfig, build
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import get_optimizer, warmup_cosine
-from repro_torch.runtime.steps import batch_to_device, make_train_step
+from repro_torch.runtime.sharding import ShardingRules, placements
+from repro_torch.runtime.steps import (
+    batch_to_device,
+    init_sharded_state,
+    make_train_state_specs,
+    make_train_step,
+)
 from repro_torch.utils.dtypes import leaf_nbytes
 from repro_torch.utils.tree import flatten_with_paths
 
@@ -78,31 +97,48 @@ def resolve_device(name: str) -> torch.device:
 @dataclass
 class Training:
     """What a run needs besides its trainer: the step, a fresh state, and
-    where restored leaves go."""
+    where restored leaves go (under a mesh, each rank's blocks)."""
 
     cfg: ModelConfig
     device: torch.device
     step_fn: Callable[[Any, Any], tuple[Any, Any]]
     init_state: Callable[[], Any]
+    rules: ShardingRules | None = None
+    specs: dict | None = None
 
     def device_for(self, path: str, shape: tuple[int, ...]):
-        return self.device if path.startswith("device/") else None
+        if not path.startswith("device/"):
+            return None
+        spec = (self.specs or {}).get(path[len("device/"):])
+        if spec is None:
+            return self.device
+        mesh = self.rules.mesh
+        return ShardTarget(mesh, placements(mesh, spec), self.device)
 
 
 def build_training(cfg: ModelConfig, *, batch: int, seq: int, lr: float,
-                   total_steps: int, device: torch.device) -> Training:
+                   total_steps: int, device: torch.device,
+                   rules: ShardingRules | None = None) -> Training:
+    """The run's step and state; with ``rules``, sharded over their mesh
+    (every rank makes the same whole params from the seed and keeps its
+    blocks)."""
     model = build(cfg)
     optimizer = get_optimizer(cfg.optimizer, warmup_cosine(lr, 10, total_steps))
+    specs = None
+    if rules is not None:
+        meta = model.init(torch.Generator().manual_seed(0), "meta")
+        specs = make_train_state_specs(meta, optimizer.init(meta), rules)
 
     def init_state():
         gen = torch.Generator(device=device).manual_seed(0)
         params = model.init(gen)
+        if rules is not None:
+            dev = init_sharded_state(params, optimizer, rules)
+        else:
+            dev = {"params": params, "opt": optimizer.init(params),
+                   "step": torch.zeros((), dtype=torch.int32, device=device)}
         return {
-            "device": {
-                "params": params,
-                "opt": optimizer.init(params),
-                "step": torch.zeros((), dtype=torch.int32, device=device),
-            },
+            "device": dev,
             "host": {
                 "step": np.int64(0),
                 "data": SyntheticBatches(cfg, batch=batch, seq_len=seq).state(),
@@ -110,8 +146,8 @@ def build_training(cfg: ModelConfig, *, batch: int, seq: int, lr: float,
         }
 
     return Training(cfg=cfg, device=device,
-                    step_fn=make_train_step(model, optimizer),
-                    init_state=init_state)
+                    step_fn=make_train_step(model, optimizer, rules=rules),
+                    init_state=init_state, rules=rules, specs=specs)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -155,7 +191,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="promotion counting window in ticks (0 = unbounded)")
     ap.add_argument("--no-incremental", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="multi-device mesh: not ported yet")
+                    help="shard over the (data=16, model=16) mesh: 256 ranks")
+    ap.add_argument("--dist-backend", choices=_mesh.BACKENDS, default=None,
+                    help="collective backend of a run of several ranks: nccl "
+                         "(a card per rank) or gloo (the CPU, or ranks sharing "
+                         "a card); required when WORLD_SIZE > 1")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--obs-dir", default=None, metavar="DIR",
                     help="enable observability: trace shards and metrics "
@@ -169,11 +209,29 @@ def train(argv=None) -> dict:
     """Run the CLI. Returns the final step, the checkpoint results, the final
     state, the last step's metrics and the phase timings."""
     args = parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError("--production-mesh is not ported yet")
+    world = _mesh.world_size()
+    if world > 1 or args.production_mesh:
+        if args.device_runner != "inline" or args.device_capacity is not None:
+            raise ValueError("a sharded run takes the inline runner without "
+                             "--device-capacity")
+        if world > 1 and args.dist_backend is None:
+            raise ValueError(f"WORLD_SIZE={world}: name the collective backend "
+                             "with --dist-backend gloo|nccl")
     if args.device_runner == "proxy":
         return _train_proxy(args)
+    if args.device.startswith("cuda") and world > 1 and torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
     device = resolve_device(args.device)
+    mesh = None
+    if world > 1:
+        _mesh.init_distributed(args.dist_backend)
+    if args.production_mesh:
+        mesh = _mesh.make_production_mesh(device_type=device.type)
+    elif world > 1:
+        mesh = _mesh.make_host_mesh((world,), ("data",), device_type=device.type)
+    rank = mesh.get_rank() if mesh is not None else 0
+    log = print if rank == 0 else (lambda *a, **k: None)
     if device.type == "cuda":
         # restart must reproduce the uninterrupted run bit for bit, as in the
         # reference: atomics in some CUDA backward kernels and cuBLAS
@@ -185,8 +243,9 @@ def train(argv=None) -> dict:
         obs_trace.enable(args.obs_dir, "app")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    rules = ShardingRules(cfg, mesh) if mesh is not None else None
     run = build_training(cfg, batch=args.batch, seq=args.seq, lr=args.lr,
-                         total_steps=args.steps, device=device)
+                         total_steps=args.steps, device=device, rules=rules)
     trainer = CheckpointedTrainer(
         run.step_fn,
         store_root=args.ckpt_dir,
@@ -200,6 +259,7 @@ def train(argv=None) -> dict:
         promote_threshold=args.promote_threshold,
         promote_window=args.promote_window,
         device=device,
+        mesh=mesh,
     )
     preempt = PreemptionHandler(trainer.policy).install()
     try:
@@ -207,8 +267,9 @@ def train(argv=None) -> dict:
         data = SyntheticBatches.from_state(
             cfg, batch=args.batch, seq_len=args.seq, state=state["host"]["data"]
         )
-        print(f"[train] arch={cfg.name} layers={cfg.num_layers} "
-              f"start_step={start} device={device}", flush=True)
+        shape = "" if mesh is None else f" mesh={_mesh.axis_sizes(mesh)}"
+        log(f"[train] arch={cfg.name} layers={cfg.num_layers} "
+            f"start_step={start} device={device}{shape}", flush=True)
         if args.device_capacity is not None:
             return _run_managed(args, trainer, run, state, start, data, preempt)
 
@@ -226,27 +287,27 @@ def train(argv=None) -> dict:
             state["host"]["step"] = np.int64(step)
             state["host"]["data"] = data.state()
             if step % args.log_every == 0 or step == args.steps:
-                print(
+                log(
                     f"[train] step={step} loss={float(metrics['loss']):.4f} "
                     f"grad_norm={float(metrics['grad_norm']):.3f}",
                     flush=True,
                 )
             if trainer.policy.should_checkpoint(step):
                 r = trainer.checkpoint_now(step, state)
-                print(
+                log(
                     f"[ckpt] step={step} blocking={r.blocking_s*1e3:.1f}ms "
                     f"(persist continues in background)",
                     flush=True,
                 )
             if preempt.received.is_set():
-                print("[train] preemption: checkpointing and exiting")
+                log("[train] preemption: checkpointing and exiting")
                 if _needs_preempt_ckpt(trainer, step):
                     trainer.checkpoint_now(step, state)
                 break
 
         done = trainer.finish()
         for r in done:
-            print(
+            log(
                 f"[ckpt-done] step={r.step} blocking={r.blocking_s*1e3:.1f}ms "
                 f"persist={r.persist_s*1e3:.1f}ms synced={r.chunks_synced} "
                 f"written={r.chunks_written} reused={r.chunks_reused}",

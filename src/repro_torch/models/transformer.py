@@ -37,6 +37,7 @@ frontend no ``embed`` and no ``lm_head`` but ``codebook_embed`` and
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -51,6 +52,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.launch import mesh as _mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.layers import (
@@ -116,15 +118,48 @@ class MoE(nn.Module):
         if cfg.moe_dense_ff:
             self.dense = MLP(cfg, dtype, cfg.moe_dense_ff)
 
-    def weights(self, i: int) -> dict:
-        """Layer i's slices, under the reference's names."""
-        def layer(m: nn.Module, names: tuple) -> dict:
-            return {n: getattr(m, n)[i] for n in names if hasattr(m, n)}
 
-        w = layer(self, ("router", "wi", "wg", "wo"))
-        if hasattr(self, "dense"):
-            w["dense"] = layer(self.dense, ("wi", "wg", "wo"))
-        return w
+# the sharded train step's tensor parallelism while it runs the layers
+# (see :func:`tensor_parallel`), and its gathering of each layer's weights
+# (see :func:`gathered_layers`)
+_TP: list = []
+_GATHER: list = []
+
+
+@contextlib.contextmanager
+def tensor_parallel(mesh, *, heads: bool, mlp: bool):
+    """Inside the block, each rank's layers hold its own heads of every
+    attention projection (``heads``: a config with the heads divided by the
+    ``model`` axis) and its own columns of the dense MLP's ``wi``/``wg``
+    and rows of its ``wo`` (``mlp``), and the ranks of ``model`` run the
+    same rows: a split part's input carries its gradient summed over
+    ``model``, its output is the sum over ``model`` (Megatron's f and g).
+    Process-wide, as ``launch.mesh.use_mesh``, for autograd's recomputing
+    thread."""
+    _TP.append((mesh, heads, mlp))
+    try:
+        yield
+    finally:
+        _TP.pop()
+
+
+@contextlib.contextmanager
+def gathered_layers(gather):
+    """Inside the block, the params under ``blocks`` are this rank's
+    blocks of the stacked weights, and layer i's weights reach the layer
+    as ``gather(path, block)`` of its slices (``path`` the param's, e.g.
+    ``blocks/attn/wq``), inside the layer's remat: a layer's gathered
+    weights live while it runs, and the backward gathers them again (FSDP)."""
+    _GATHER.append(gather)
+    try:
+        yield
+    finally:
+        _GATHER.pop()
+
+
+def _tree_map(fn, tree: dict, *rest: dict) -> dict:
+    return {k: _tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
 def _qkv(cfg: ModelConfig, w: dict, h: torch.Tensor):
@@ -144,6 +179,11 @@ def _ffn(cfg: ModelConfig, w: dict, h: torch.Tensor):
     """The block's MLP, or its MoE layer -> (out, aux: None for an MLP)."""
     if "moe" in w:
         return moe_apply(cfg, w["moe"], h)
+    if _TP and _TP[-1][2]:
+        mesh = _TP[-1][0]
+        out = mlp_apply(w["wi"], w["mlp_wo"], w.get("wg"),
+                        _mesh.sum_grad_over(h, mesh, "model"), cfg.mlp_type)
+        return _mesh.sum_over(out, mesh, "model"), None
     return mlp_apply(w["wi"], w["mlp_wo"], w.get("wg"), h, cfg.mlp_type), None
 
 
@@ -153,6 +193,8 @@ def _finish(cfg: ModelConfig, w: dict, x: torch.Tensor, h: torch.Tensor,
     B, S, _ = x.shape
     attn_out = attn_out.transpose(1, 2).reshape(B, S, cfg.q_dim)
     attn_out = attn_out @ w["attn_wo"]
+    if _TP and _TP[-1][1]:
+        attn_out = _mesh.sum_over(attn_out, _TP[-1][0], "model")
     if cfg.parallel_block:
         out, aux = _ffn(cfg, w, h)
         return x + attn_out + out, aux
@@ -167,16 +209,28 @@ def _layer(cfg: ModelConfig, w: dict, x: torch.Tensor, positions: torch.Tensor,
     v (B, Hkv, S, Dh), the MoE aux or None). A function of its arguments
     alone, so remat can run it again in the backward."""
     h = rmsnorm(x, w["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, w, h)
+    q, k, v = _qkv(cfg, w, _mesh.sum_grad_over(h, _TP[-1][0], "model")
+                   if _TP and _TP[-1][1] else h)
+    attn_out, k = attend(cfg, q, k, v, positions, prefix_len)
+    x, aux = _finish(cfg, w, x, h, attn_out)
+    return x, k, v, aux
+
+
+def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           positions: torch.Tensor, prefix_len: int | None = None):
+    """A layer's attention on its q (B, H, S, Dh), k and v (B, Hkv, S, Dh):
+    RoPE on q and k, then causal (or prefix-LM) attention, the flash
+    kernels from ``cfg.attn_chunked_threshold`` positions on -> (out (B, H,
+    S, Dh), post-RoPE k). Each head alone: under a mesh a rank runs it on
+    its own heads."""
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    attn_out = multihead_attention(
+    out = multihead_attention(
         q, k, v, causal=True, prefix_len=prefix_len,
         chunked_threshold=cfg.attn_chunked_threshold,
         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
     )
-    x, aux = _finish(cfg, w, x, h, attn_out)
-    return x, k, v, aux
+    return out, k
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -214,6 +268,15 @@ def _remat(cfg: ModelConfig, fn):
     raise ValueError(f"unknown remat {cfg.remat!r}: none, dots or full")
 
 
+def _gathering(fn, gather, paths: dict):
+    """``fn(w, x, positions)`` on the layer's weights ``gather``-ed from
+    this rank's blocks ``w``."""
+    def run(w, x, positions):
+        return fn(_tree_map(lambda t, p: gather("blocks/" + p, t), w, paths), x, positions)
+
+    return run
+
+
 class Blocks(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -226,29 +289,47 @@ class Blocks(nn.Module):
         if not cfg.parallel_block:
             self.ln2 = _param(cfg.num_layers, cfg.d_model, dtype=dtype)
 
+    def weight_paths(self, cfg: ModelConfig) -> dict:
+        """:meth:`weights`' tree, each leaf the path of its stacked param
+        under ``blocks``."""
+        p = {"ln1": "ln1", "wq": "attn/wq", "wk": "attn/wk", "wv": "attn/wv",
+             "attn_wo": "attn/wo"}
+        if cfg.qkv_bias:
+            p.update(bq="attn/bq", bk="attn/bk", bv="attn/bv")
+        if cfg.family == "moe":
+            p["moe"] = {n: f"moe/{n}" for n in ("router", "wi", "wg", "wo")
+                        if hasattr(self.moe, n)}
+            if hasattr(self.moe, "dense"):
+                p["moe"]["dense"] = {n: f"moe/dense/{n}" for n in ("wi", "wg", "wo")
+                                     if hasattr(self.moe.dense, n)}
+        else:
+            p.update(wi="mlp/wi", mlp_wo="mlp/wo")
+            if cfg.mlp_type in ("swiglu", "geglu"):
+                p["wg"] = "mlp/wg"
+        if not cfg.parallel_block:
+            p["ln2"] = "ln2"
+        return p
+
     def weights(self, cfg: ModelConfig, i: int) -> dict:
         """Layer i's slices of the stacked weights."""
-        w = {"ln1": self.ln1[i], "wq": self.attn.wq[i], "wk": self.attn.wk[i],
-             "wv": self.attn.wv[i], "attn_wo": self.attn.wo[i]}
-        if cfg.qkv_bias:
-            w.update(bq=self.attn.bq[i], bk=self.attn.bk[i], bv=self.attn.bv[i])
-        if cfg.family == "moe":
-            w["moe"] = self.moe.weights(i)
-        else:
-            w.update(wi=self.mlp.wi[i], mlp_wo=self.mlp.wo[i])
-            if cfg.mlp_type in ("swiglu", "geglu"):
-                w["wg"] = self.mlp.wg[i]
-        if not cfg.parallel_block:
-            w["ln2"] = self.ln2[i]
-        return w
+        def get(path: str) -> torch.Tensor:
+            node = self
+            for name in path.split("/"):
+                node = getattr(node, name)
+            return node[i]
+
+        return _tree_map(get, self.weight_paths(cfg))
 
     def layer(self, cfg: ModelConfig, i: int, x: torch.Tensor,
               positions: torch.Tensor, prefix_len: int | None = None):
         """Layer i over (B, S, D) -> (x, post-RoPE k, v (B, Hkv, S, Dh), the
         MoE aux or None), rematerialised per ``cfg.remat`` when a gradient
-        is being taken."""
+        is being taken; under :func:`gathered_layers` its weights are
+        gathered inside the remat."""
         w = self.weights(cfg, i)
         fn = functools.partial(_layer, cfg, prefix_len=prefix_len)
+        if _GATHER:
+            fn = _gathering(fn, _GATHER[-1], self.weight_paths(cfg))
         if torch.is_grad_enabled() and (x.requires_grad or any(
                 t.requires_grad for t in flatten_with_paths(w)[0].values())):
             fn = _remat(cfg, fn)

@@ -32,8 +32,13 @@ from repro_torch.utils.tree import flatten_with_paths, unflatten_from_paths
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, torch.Tensor], tuple[Any, Any]]
-    """update(grads, state, params, step) -> (params, state), in place"""
+    update: Callable[..., tuple[Any, Any]]
+    """update(grads, state, params, step, norm=None) -> (params, state), in
+    place; ``norm`` is the grads' global norm when the caller has it (a
+    sharded step, whose grads here are shards)"""
+    # True: the update is the same function of each element (given the
+    # norm), so it can run on shards as it runs on whole leaves
+    elementwise: bool = False
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -41,8 +46,9 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
 
 
-def clip_by_global_norm(tree: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: Any, max_norm: float,
+                        norm: torch.Tensor | None = None) -> tuple[Any, torch.Tensor]:
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     flat, treedef = flatten_with_paths(tree)
     clipped = {k: (x.float() * scale).to(x.dtype) for k, x in flat.items()}
@@ -70,8 +76,8 @@ def adamw(
         return {"m": zeros(), "v": zeros()}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+    def update(grads, state, params, step, norm=None):
+        grads, _ = clip_by_global_norm(grads, max_grad_norm, norm)
         t = step.float() + 1.0
         lr_t = lr_fn(step)
         bc1 = 1.0 - b1**t
@@ -89,7 +95,7 @@ def adamw(
             p.copy_((p.float() - lr_t * u).to(p.dtype))
         return params, state
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, elementwise=True)
 
 
 def adafactor(
@@ -120,8 +126,8 @@ def adafactor(
         return {"f": unflatten_from_paths(treedef, {k: per_leaf(p) for k, p in flat.items()})}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+    def update(grads, state, params, step, norm=None):
+        grads, _ = clip_by_global_norm(grads, max_grad_norm, norm)
         t = step.float() + 1.0
         beta = 1.0 - t ** (-decay)
         lr_t = lr_fn(step)
@@ -198,8 +204,8 @@ def q8adam(
         }
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+    def update(grads, state, params, step, norm=None):
+        grads, _ = clip_by_global_norm(grads, max_grad_norm, norm)
         t = step.float() + 1.0
         lr_t = lr_fn(step)
         bc1, bc2 = 1.0 - b1**t, 1.0 - b2**t

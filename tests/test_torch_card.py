@@ -781,3 +781,86 @@ def test_daemon_on_card_serves_decode_bitwise(deterministic):
     assert int(got["cache"]["pos"]) == P + G - 1
     assert info["phase_us"]["digest_launches"] == info["phase_us"]["steps"] == P + G - 1
     assert 0 < info["bytes_synced"] <= clean
+
+
+@pytest.fixture
+def nccl_world1(deterministic):
+    """A process group of one rank over NCCL, destroyed afterwards."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as _mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_mesh.free_port()}",
+                            rank=0, world_size=1)
+    yield deterministic
+    dist.destroy_process_group()
+
+
+def test_world1_nccl_mesh_step_is_todays_step_bitwise(nccl_world1):
+    """The sharded step on a (1,) NCCL mesh gives the bits of the step
+    without a mesh: every collective of one rank is the identity."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.runtime.sharding import ShardingRules
+    from repro_torch.runtime.steps import init_sharded_state, make_train_step
+
+    cfg = get_config("moonshot-v1-16b-a3b", smoke=True)
+    model, opt = build(cfg), get_optimizer("adamw", warmup_cosine(3e-4, 10, 100))
+    rules = ShardingRules(cfg, make_mesh((1,), ("data",), device_type="cuda"))
+    params = model.init(torch.Generator(device=nccl_world1).manual_seed(0))
+    twin = model.init(torch.Generator(device=nccl_world1).manual_seed(0))
+    plain = {"params": twin, "opt": opt.init(twin),
+             "step": torch.zeros((), dtype=torch.int32, device=nccl_world1)}
+    sharded = init_sharded_state(params, opt, rules)
+    data = SyntheticBatches(cfg, batch=4, seq_len=32)
+    step, step1 = make_train_step(model, opt, rules=rules), make_train_step(model, opt)
+    for _ in range(3):
+        batch = batch_to_device(next(data), nccl_world1)
+        sharded, m = step(sharded, batch)
+        plain, m1 = step1(plain, batch)
+        assert float(m["loss"]) == float(m1["loss"])
+    from repro_torch.utils.tree import flatten_with_paths
+
+    got = {k: v.to_local() for k, v in flatten_with_paths(sharded["params"])[0].items()}
+    for k, v in flatten_with_paths(plain["params"])[0].items():
+        assert torch.equal(got[k], v), k
+
+
+def test_split_heads_attention_is_bitwise_per_head(cuda):
+    """The attention as the sharded step runs it on one rank of a (2, 2)
+    mesh (``transformer.attend`` under ``steps.split_config``'s config: 2
+    of moonshot's 4 heads here, head dim 128, bf16, 256 positions with the
+    flash kernels from 256 on): each rank's forward and backward give, head
+    by head, the bits of the same function on the whole tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.sharding import ShardingRules
+    from repro_torch.runtime.steps import split_config
+
+    cfg = get_config("moonshot-v1-16b-a3b").with_overrides(
+        num_heads=4, num_kv_heads=4, attn_chunked_threshold=256)
+    rank_cfg, heads, _mlp = split_config(cfg, ShardingRules(cfg, make_abstract_mesh(
+        (2, 2), ("data", "model"))))
+    assert heads and rank_cfg.num_heads == 2
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, do = (torch.randn(2, 4, 256, 128, generator=g, device=cuda,
+                               dtype=torch.bfloat16) for _ in range(4))
+    pos = torch.arange(256, device=cuda)
+    whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, _ = tfm.attend(cfg, *whole, pos)
+    out.backward(do)
+    for m in range(2):
+        h = slice(2 * m, 2 * m + 2)
+        part = [t[:, h].clone().requires_grad_(True) for t in (q, k, v)]
+        before = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+        got, _ = tfm.attend(rank_cfg, *part, pos)
+        got.backward(do[:, h])
+        assert (fa.flash_attention.launches - before[0],
+                fa.flash_attention_bwd.launches - before[1]) == (1, 1)
+        assert torch.equal(got, out[:, h])
+        for p, w in zip(part, whole):
+            assert torch.equal(p.grad, w.grad[:, h])

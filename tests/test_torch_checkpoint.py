@@ -288,3 +288,60 @@ def test_register_persist_backend_refuses_twice_unless_replaced(tmp_path, rng):
         ck.close()
     finally:
         _PERSIST_BACKENDS.pop("counting", None)
+
+
+def test_fork_child_runs_no_destructor_it_inherited(tmp_path, rng, monkeypatch):
+    """The fork persist child inherits the parent's uncollected garbage,
+    such as a finished managed space, whose host backing is mapped
+    ``MADV_DONTFORK`` and so absent in the child. Were a collection in the
+    child to free it, its munmap would take pages the child has since
+    mapped for itself, and the child would die of SIGSEGV touching them.
+    Here the child maps such pages, collects and touches them from its
+    chunk loop; it must finalize nothing it inherited and commit, and the
+    parent's own collection still frees the garbage."""
+    import gc
+    import mmap
+    import os
+
+    from repro_torch.core import forked
+    from repro_torch.uvm.space import _host_buffer
+
+    parent, marks = os.getpid(), tmp_path / "finalized"
+
+    class Cyclic:
+        def __init__(self):
+            self.me, self.backing = self, _host_buffer(16 << 20)
+
+        def __del__(self):
+            with open(marks, "a") as f:
+                f.write(f"{os.getpid()}\n")
+
+    digest, mapped = forked.chunk_digest_np, []
+
+    def collecting(raw):
+        if os.getpid() != parent and not mapped:
+            mapped.extend(mmap.mmap(-1, 16 << 20) for _ in range(4))
+            gc.collect()
+            for m in mapped:
+                m[:1] = b"x"
+        return digest(raw)
+
+    monkeypatch.setattr(forked, "chunk_digest_np", collecting)
+    state = _np_state(rng)
+    tstate = {"device": {k: array_to_tensor(v) for k, v in state["device"].items()},
+              "host": state["host"]}
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        Cyclic()  # garbage until the next collection
+        ck = ForkedCheckpointer(ChunkStore(str(tmp_path / "ck")), chunk_bytes=256,
+                                backend="fork")
+        r = ck.save_sync(3, tstate)
+        ck.close()
+        assert r.error is None and not marks.exists()
+    finally:
+        if enabled:
+            gc.enable()
+    gc.collect()
+    assert marks.read_text().split() == [str(parent)]
+    assert RestoreManager(ChunkStore(str(tmp_path / "ck"))).available_steps() == [3]

@@ -7,9 +7,13 @@ run that was never killed, on both persist backends (and on the card:
 ``examples/torch_serve_lazy_restore.py`` runs to its end (eager and lazy
 restore give the same first logits); ``examples/torch_train_100m_restart.py``'s
 launcher kills and restarts a worker cut to 1 layer of width 24 (at 100M
-params a CPU step takes seconds: the full size runs on the card).
+params a CPU step takes seconds: the full size runs on the card);
+``examples/torch_elastic_reshard.py`` (8 gloo ranks) trains on a (4, 2)
+mesh, checkpoints, restores onto (8,) and trains on, its losses the
+reference example's from the same initial params.
 """
 import importlib.util
+import json
 import os
 import pathlib
 import signal
@@ -17,6 +21,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -102,3 +107,68 @@ def test_train_100m_launcher_kills_and_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert resumed in (25, 50)
     assert "[launcher] SIGKILL" in out and "[worker] DONE step=60" in out
+
+
+# the reference's elastic example, recording its initial params and every
+# step's loss unrounded
+_REF_ELASTIC = """
+import dataclasses, json, runpy, sys
+import jax
+import numpy as np
+import repro.models as rm
+import repro.runtime.steps as rs
+from repro.utils.tree import flatten_with_paths
+build, make, losses = rm.build, rs.make_train_step, []
+def build_(cfg):
+    model = build(cfg)
+    def init(key):
+        params = model.init(key)
+        if not isinstance(jax.tree.leaves(params)[0], jax.core.Tracer):  # not eval_shape's
+            np.savez(sys.argv[1], **{k: np.asarray(v)
+                                     for k, v in flatten_with_paths(params)[0].items()})
+        return params
+    return dataclasses.replace(model, init=init)
+def make_(*a, **kw):
+    fn, sh, bsh = make(*a, **kw)
+    def step(state, batch):
+        out = fn(state, batch)
+        losses.append(float(out[1]["loss"]))
+        return out
+    return step, sh, bsh
+rm.build, rs.make_train_step = build_, make_
+runpy.run_path("examples/elastic_reshard.py", run_name="__main__")
+print(json.dumps(losses))
+"""
+
+
+def test_elastic_reshard_twin_matches_the_reference_example(tmp_path):
+    """``examples/torch_elastic_reshard.py`` (8 gloo ranks: (4, 2) -> (8,))
+    runs to its end importing only ``repro_torch``, and from the reference
+    example's initial params its step-3 and step-5 losses are the
+    reference's within 1e-5 (f32, two frameworks' sum orders)."""
+    env = dict(os.environ, PYTHONPATH="src")
+    env.pop("XLA_FLAGS", None)
+    init = tmp_path / "init.npz"
+    ref = subprocess.run([sys.executable, "-c", _REF_ELASTIC, str(init)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    want = json.loads(ref.stdout.strip().splitlines()[-1])
+    assert "step 5 loss=5.1596" in ref.stdout and len(want) == 5
+    import ast
+
+    tree = ast.parse((EXAMPLES / "torch_elastic_reshard.py").read_text())
+    imported = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names}
+    imported |= {n.module.split(".")[0] for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom)}
+    assert not imported & {"repro", "jax", "jaxlib"} and "repro_torch" in imported
+    out = subprocess.run([sys.executable, "-W", "ignore", str(EXAMPLES / "torch_elastic_reshard.py"),
+                          "--init-params", str(init), "--json"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("[mesh A 4x2] step 3 loss=")
+    assert lines[1].startswith("[mesh B 8x1] resumed from step 3, step 5 loss=")
+    assert lines[2] == "elastic reshard OK: same checkpoint, different topology"
+    got = json.loads(lines[3])["loss"]
+    np.testing.assert_allclose([got["3"], got["5"]], [want[2], want[4]], rtol=1e-5)

@@ -27,6 +27,7 @@ PHASES = {
     "moe": cs.phase_moe,
     "multimodal": cs.phase_multimodal,
     "multimodal-long": cs.phase_multimodal_long,
+    "mesh": cs.phase_mesh,
     "timing-flash-bwd": lambda card: print(json.dumps(cs.phase_flash_bwd_timing(0),
                                                       default=str)),
 }
